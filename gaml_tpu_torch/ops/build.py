@@ -1,0 +1,86 @@
+"""Build the port's CUDA sources with nvcc on first use; load with ctypes.
+
+The sources in ``gaml_tpu_torch/csrc`` compile into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds).
+The library lands in ``gaml_tpu_torch/_build`` under a name derived from
+the sources' content, so an edited source rebuilds and concurrent
+processes share one finished build.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("band_dp.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib = None
+# what the last load() did: library path, build seconds (0.0 when an
+# existing build was reused) and the compiler's output (-Xptxas -v)
+build_info = {"path": None, "seconds": None, "log": ""}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the CUDA kernels build where the CUDA toolkit is")
+
+
+def _library_path(srcs) -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libgaml_torch_{h.hexdigest()[:16]}.so")
+
+
+def _compile(srcs, so: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)
+    build_info["seconds"] = time.perf_counter() - t0
+    build_info["log"] = proc.stdout + proc.stderr
+
+
+def load():
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = [os.path.join(CSRC, s) for s in SOURCES]
+        so = _library_path(srcs)
+        build_info["seconds"] = 0.0
+        if not os.path.exists(so):
+            _compile(srcs, so)
+        lib = ctypes.CDLL(so)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gaml_swar_cost.argtypes = [p, p, p, p, i, i, p, p]
+        lib.gaml_swar_cost.restype = i
+        lib.gaml_swar_cost_accept.argtypes = [p, p, p, p, i, i, p, p, p]
+        lib.gaml_swar_cost_accept.restype = i
+        build_info["path"] = so
+        _lib = lib
+        return lib

@@ -1,0 +1,112 @@
+"""Kernels K1/K2 (csrc/band_dp.cu): wrappers, plain versions, launch counts.
+
+K1 ``swar_cost`` replaces gaml_tpu/ops/extend_pallas.py::swar_cost_pallas
+(forward direction: the d=0 cost saturated at 7).  K2
+``swar_cost_accept`` replaces ::swar_cost_accept_pallas (backward
+direction: that cost plus the preferred accept offset, INVALID_A where
+none).  Inputs follow the JAX kernels' candidate-minor layout:
+read_t [rmax, n] uint8 (codes 0-4, sentinel 6), gwin_t [rmax + 2*PAD, n]
+uint8 (codes 0-4, sentinel 8), rlen/glen [n] int32.  Unlike the TPU
+kernels there is no block row bound and no layout permutation: the
+kernels bound rows per candidate and take any n.
+
+Contract (from the JAX kernels): K1 c == min(c_exact, 7); K2 the same c
+and a == a_exact wherever c_exact <= 6.  The CUDA kernels return the
+exact a everywhere.
+
+On a CPU tensor the wrappers run the plain versions; on a CUDA tensor
+they launch the kernel or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .extend import PAD, dp_rows
+
+SAT = 7
+
+# launches of each kernel by its wrapper (plain-version calls not counted)
+LAUNCHES = {"swar_cost": 0, "swar_cost_accept": 0}
+
+
+def _plain(read_t, gwin_t, rlen, glen):
+    rmax = read_t.shape[0]
+    c, a = dp_rows(read_t.t(), rlen, gwin_t.t(), glen, rmax)
+    return torch.clamp(c[:, 3], max=SAT), a[:, 3]
+
+
+def swar_cost_ref(read_t, gwin_t, rlen, glen):
+    """Plain torch version of K1: dp_rows' d=0 cost, saturated at 7."""
+    return _plain(read_t, gwin_t, rlen, glen)[0]
+
+
+def swar_cost_accept_ref(read_t, gwin_t, rlen, glen):
+    """Plain torch version of K2: (cost saturated at 7, accept offset)."""
+    return _plain(read_t, gwin_t, rlen, glen)
+
+
+def _check(read_t, gwin_t, rlen, glen):
+    if read_t.dim() != 2:
+        raise ValueError(f"read_t must be [rmax, n], got {tuple(read_t.shape)}")
+    rmax, n = read_t.shape
+    want = {"read_t": (read_t, torch.uint8, (rmax, n)),
+            "gwin_t": (gwin_t, torch.uint8, (rmax + 2 * PAD, n)),
+            "rlen": (rlen, torch.int32, (n,)),
+            "glen": (glen, torch.int32, (n,))}
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != read_t.device:
+            raise ValueError(f"{name} is on {t.device}, read_t on "
+                             f"{read_t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return rmax, n
+
+
+def _launch(name, read_t, gwin_t, rlen, glen, outs):
+    from .build import load
+
+    rmax, n = read_t.shape
+    lib = load()
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(read_t.device):
+        stream = torch.cuda.current_stream(read_t.device).cuda_stream
+        args = [ptr(read_t.data_ptr()), ptr(gwin_t.data_ptr()),
+                ptr(rlen.data_ptr()), ptr(glen.data_ptr()), n, rmax]
+        args += [ptr(o.data_ptr()) for o in outs]
+        err = getattr(lib, "gaml_" + name)(*args, ptr(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def swar_cost(read_t, gwin_t, rlen, glen):
+    """K1: forward-direction cost per candidate, int32 [n] in 0..7."""
+    rmax, n = _check(read_t, gwin_t, rlen, glen)
+    if read_t.device.type == "cpu":
+        return swar_cost_ref(read_t, gwin_t, rlen, glen)
+    if read_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {read_t.device}")
+    c = torch.empty(n, dtype=torch.int32, device=read_t.device)
+    if n:
+        _launch("swar_cost", read_t, gwin_t, rlen, glen, [c])
+    return c
+
+
+def swar_cost_accept(read_t, gwin_t, rlen, glen):
+    """K2: backward-direction (cost 0..7, accept offset in -3..3 or
+    INVALID_A) per candidate, both int32 [n]."""
+    rmax, n = _check(read_t, gwin_t, rlen, glen)
+    if read_t.device.type == "cpu":
+        return swar_cost_accept_ref(read_t, gwin_t, rlen, glen)
+    if read_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {read_t.device}")
+    c = torch.empty(n, dtype=torch.int32, device=read_t.device)
+    a = torch.empty(n, dtype=torch.int32, device=read_t.device)
+    if n:
+        _launch("swar_cost_accept", read_t, gwin_t, rlen, glen, [c, a])
+    return c, a

@@ -1,0 +1,129 @@
+"""The port's CLI (gaml_tpu_torch.cli) end to end on the CPU: the same
+anneal trace and output files as gaml_tpu.cli --backend device, and no
+jax anywhere in the port's process."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from gaml_tpu.native import get_lib
+
+from fixtures import lastgraph_text, random_seq, write_fastq
+from test_scoring import make_pairs
+
+pytestmark = pytest.mark.skipif(get_lib() is None,
+                                reason="native library unavailable")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def with_errors(rng, reads, rate):
+    out = []
+    for r in reads:
+        r = list(r)
+        for i in np.nonzero(rng.random(len(r)) < rate)[0].tolist():
+            r[i] = "ACGT"[("ACGT".index(r[i]) + int(rng.integers(1, 4))) % 4]
+        out.append("".join(r))
+    return out
+
+
+def write_world(tmp_path, iterations=25):
+    """The test_config_cli end-to-end world with 2 % substitution errors;
+    returns a function making a config whose outputs and caches live
+    under their own prefix."""
+    rng = np.random.default_rng(0)
+    node_seqs = [random_seq(rng, 600), random_seq(rng, 80),
+                 random_seq(rng, 700)]
+    (tmp_path / "LastGraph").write_text(
+        lastgraph_text(node_seqs, [(1, 2), (2, 3)]))
+    m1, m2 = make_pairs(rng, "".join(node_seqs), 25, 30, 250, 25)
+    write_fastq(str(tmp_path / "m1.fq"), with_errors(rng, m1, 0.02))
+    write_fastq(str(tmp_path / "m2.fq"), with_errors(rng, m2, 0.02))
+
+    def config(name):
+        cfg = tmp_path / f"{name}.cfg"
+        cfg.write_text(f"""graph={tmp_path}/LastGraph
+max_iterations={iterations}
+t0=0.01
+output_prefix={tmp_path}/{name}
+seed=3
+
+[lib1]
+type=paired
+filename1={tmp_path}/m1.fq
+filename2={tmp_path}/m2.fq
+insert_mean=250
+insert_std=25
+cache_prefix={tmp_path}/{name}_lib1
+""")
+        return str(cfg)
+
+    return config
+
+
+def itnum_lines(text):
+    """Anneal trace with the timestamp field stripped."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("itnum"):
+            f = line.split()
+            del f[5]
+            out.append(" ".join(f))
+    return out
+
+
+def test_trace_and_outputs_match_jax_device_backend(tmp_path, monkeypatch,
+                                                    capsys):
+    from gaml_tpu.cli import main as jax_main
+    from gaml_tpu_torch.cli import main as port_main
+
+    config = write_world(tmp_path)
+    monkeypatch.setenv("GAML_DEV_MIN_BASES", "0")
+    monkeypatch.setenv("GAML_DEV_EAGER", "1")
+    monkeypatch.chdir(tmp_path)
+    assert jax_main([config("jax"), "--backend", "device"]) == 0
+    jax_out = capsys.readouterr().out
+    assert port_main([config("port"), "--device", "cpu"]) == 0
+    port_out = capsys.readouterr().out
+    trace = itnum_lines(port_out)
+    assert len(trace) >= 25
+    assert trace == itnum_lines(jax_out)
+    assert '"candidates"' in port_out.splitlines()[-1]
+    for ext in ("walks", "fasta"):
+        assert (tmp_path / f"port.{ext}").read_bytes() == \
+            (tmp_path / f"jax.{ext}").read_bytes()
+
+
+def test_port_process_never_imports_jax(tmp_path):
+    config = write_world(tmp_path, iterations=3)("nojax")
+    code = (
+        "import sys\n"
+        "import gaml_tpu_torch\n"
+        "import gaml_tpu_torch.ops.build, gaml_tpu_torch.ops.extend_cuda\n"
+        "from gaml_tpu_torch.cli import main\n"
+        f"rc = main([{config!r}, '--device', 'cpu'])\n"
+        "assert rc == 0, rc\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('NOJAX-OK')\n")
+    env = dict(os.environ, GAML_DEV_MIN_BASES="0")
+    env.pop("JAX_PLATFORMS", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX-OK" in proc.stdout
+    assert '"batches": 0' not in proc.stdout  # the device path ran
+
+
+def test_cli_refuses_missing_cuda_and_unported_options(tmp_path,
+                                                       monkeypatch):
+    from gaml_tpu_torch.cli import main as port_main
+
+    config = write_world(tmp_path, iterations=1)("refuse")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert port_main([config, "--device", "cuda"]) != 0
+    assert port_main([config, "--device", "cpu", "--paired-device"]) != 0
+    assert port_main([config, "--device", "cpu",
+                      "--distributed", "localhost:1234"]) != 0
