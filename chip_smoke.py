@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from gaml_tpu_torch/csrc, then drives the port's
-short-read rescore path phase by phase, each phase printing one line with
-its result and seconds:
+short-read rescore path and its long-read scoring path phase by phase,
+each phase printing its results and seconds:
 
 0. the card (nvidia-smi name and power limit), torch and CUDA versions,
    the kernel build;
@@ -19,7 +19,18 @@ its result and seconds:
 4. an anneal through ``python -m gaml_tpu_torch.cli --device cuda`` on the
    2.8 Mb paired world of examples/aureus_like_run.py, held against a
    ``--device cpu`` run of the same config and reported against
-   ``python -m gaml_tpu.cli --backend bfs``.
+   ``python -m gaml_tpu.cli --backend bfs``;
+5. kernel K5 (the PacBio banded forward DP) against its plain torch
+   version on the card at widths 64 and 128, at an S. aureus-sized batch
+   (2.8 Mb walk buffer, 2048 jobs, reads up to 5 kb);
+6. long-read scoring at the repo's pinned scale (the examples/pacbio_run.py
+   world: 1 Mb, 500 reads of 3 kb, 10 % errors, seed 5): the port's read
+   set against the native host route, and the native-vs-card crossover
+   in DP cells;
+7. a PacBio anneal through the port's CLI (``--device cuda``, in this
+   process, under the profiler) against ``python -m gaml_tpu.cli`` on the
+   native host route, held to the assembly-level bound of
+   tests/test_pacbio.py::test_f32_route_anneal_quality_bound.
 
 Any failed check raises and exits non-zero.  The last two lines are a
 JSON object describing each kernel and {"ok": true, "device": {...}}.
@@ -28,6 +39,7 @@ exits non-zero before any phase.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -39,11 +51,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MATCH, MISMATCH = 0.96, 0.01
 MPB, MPS = -0.7, -10.0
 READ_LEN = 100
-KERNELS = {
-    "swar_cost": "gaml_tpu/ops/extend_pallas.py:467",
-    "swar_cost_accept": "gaml_tpu/ops/extend_pallas.py:600",
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "swar_cost": ("gaml_tpu_torch/csrc/band_dp.cu",
+                  "gaml_tpu/ops/extend_pallas.py:467"),
+    "swar_cost_accept": ("gaml_tpu_torch/csrc/band_dp.cu",
+                         "gaml_tpu/ops/extend_pallas.py:600"),
+    "banded_forward": ("gaml_tpu_torch/csrc/banded_forward.cu",
+                       "gaml_tpu/ops/forward_pallas.py:134"),
 }
-SOURCE = "gaml_tpu_torch/csrc/band_dp.cu"
+PB_MATCH, PB_MISMATCH = 0.85, 0.0375  # config mismatch_prob=0.0375
+
+
+def sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def check(cond, msg):
@@ -81,7 +104,7 @@ def timer(device, fn, reps, host_clock=False):
 def phase_card():
     import torch
 
-    from gaml_tpu.native import get_lib
+    from gaml_tpu_torch.native import load_native
     from gaml_tpu_torch.ops import build
 
     smi = subprocess.run(
@@ -93,7 +116,7 @@ def phase_card():
           f"cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count "
           f"{torch.cuda.device_count()}", flush=True)
-    check(get_lib() is not None, "the native C++ library did not build")
+    check(load_native() is not None, "the native C++ library did not build")
     build.load()
     print(f"kernel build {build.build_info['seconds']:.2f} s -> "
           f"{os.path.relpath(build.build_info['path'], ROOT)}", flush=True)
@@ -397,9 +420,10 @@ def phase_anneal(device, iterations=1000, check_iterations=200,
               f"{first_difference(dev_tr, cpu_tr)}")
         check(summary["batches"] > 0 and summary["candidates"] > 0,
               f"no window batch reached the device: {summary}")
-        check(device.type != "cuda" or
-              all(v > 0 for v in summary["launches"].values()),
-              f"a kernel was not launched by the anneal: {summary}")
+        check(device.type != "cuda" or all(
+            summary["launches"][k] > 0
+            for k in ("swar_cost", "swar_cost_accept")),
+            f"a kernel was not launched by the anneal: {summary}")
         best = float(dev_tr[-1].split()[9])
         check(np.isfinite(best), f"best prob {best}")
         files = {}
@@ -424,6 +448,402 @@ def phase_anneal(device, iterations=1000, check_iterations=200,
     print("  " + json.dumps(res), flush=True)
     if diff is not None:
         print(f"  {device}: {diff[1]}\n  bfs:  {diff[2]}", flush=True)
+    return res
+
+
+# ------------------------------------------------------------------ phase 5
+def ptxas_usage(log, name):
+    """{"registers", "spill_stores", "spill_loads"} of each kernel whose
+    mangled name contains ``name``, from the compiler's -Xptxas -v."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        elif entry and name in entry:
+            use = out.setdefault(entry, {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                use["spill_stores"], use["spill_loads"] = map(int,
+                                                              m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                use["registers"] = int(m.group(1))
+    return list(out.values())
+
+
+def forward_inputs(seed, device, n_jobs=2048, rmax=5120,
+                   seq_len=2_800_000, err=0.1):
+    """K5 inputs of an S. aureus-sized long-read batch: a random walk
+    buffer; each job's read follows its guide path (steps from
+    {0,1,1,1,2}) with 10 % substitutions; ragged read lengths up to rmax;
+    random targets, some of which end inside the read's span."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    seq = rng.integers(0, 4, seq_len).astype(np.uint8)
+    rlen = rng.integers(rmax // 8, rmax + 1, n_jobs).astype(np.int32)
+    steps = rng.choice(np.array([0, 1, 1, 1, 2], np.uint8), (n_jobs, rmax))
+    c0 = rng.integers(256, seq_len - 2 * rmax - 256, n_jobs)
+    pos = c0[:, None] + np.cumsum(steps, axis=1, dtype=np.int64)
+    reads = seq[pos - 1]
+    sub = rng.random(reads.shape) < err
+    reads[sub] = (reads[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    gstart = c0 - rng.integers(0, 300, n_jobs)
+    span = pos[np.arange(n_jobs), rlen - 1] - gstart
+    glen = (span * rng.uniform(0.7, 1.3, n_jobs)).astype(np.int64)
+    t = lambda x, dt: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x, dtype=dt)).to(device)
+    return (t(reads, np.uint8), torch.arange(n_jobs, dtype=torch.int32,
+                                             device=device),
+            t(seq, np.uint8), t(steps, np.uint8), t(c0, np.int32),
+            t(gstart, np.int32), t(glen, np.int32), t(rlen, np.int32))
+
+
+def phase_forward_kernel(device, reps=10, **shape):
+    """K5 against its plain version at both band widths.  Both are
+    float32 with different exp/log1p implementations and a different
+    order of the gap-chain scan, so the tolerance per job is
+    |kernel - plain| <= 1e-4 |plain| + 1e-3."""
+    import torch
+
+    from gaml_tpu_torch.ops import build, forward_cuda as fc
+
+    args = forward_inputs(0, device, **shape)
+    lm, lmm = float(np.log(PB_MATCH)), float(np.log(PB_MISMATCH))
+    cells_per_lane = int(args[7].sum())
+    out = {}
+    for width in (64, 128):
+        got = fc.banded_forward(*args, lm, lmm, width)
+        sync(device)
+        t0 = time.perf_counter()
+        want = fc.banded_forward_ref(*args, lm, lmm, width)
+        sync(device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        diff = (got - want).abs()
+        bad = int((diff > 1e-4 * want.abs() + 1e-3).sum())
+        check(bool(torch.isfinite(got).all()), f"K5 W={width}: non-finite")
+        check(bad == 0, f"K5 W={width}: {bad} jobs outside the tolerance "
+              f"(max abs err {float(diff.max()):.3g})")
+        ms = timer(device, lambda: fc.banded_forward(*args, lm, lmm, width),
+                   reps)
+        out[width] = {
+            "max_abs_err": float(diff.max()),
+            "max_rel_err": float((diff / want.abs()).max()),
+            "ms": ms, "plain_ms": plain_ms,
+            "cells_per_s": cells_per_lane * width / (ms / 1e3),
+            "ptxas": ptxas_usage(build.build_info["log"],
+                                 f"banded_forward_kernelILi{width}E")}
+        print(f"  W={width} jobs={len(args[7])} rmax={args[3].shape[1]} "
+              f"cells={cells_per_lane * width}: " + json.dumps(out[width]),
+              flush=True)
+    return out
+
+
+# -------------------------------------------------------------- phases 6-7
+def write_pacbio_world(d, genome_kb=1000, n_reads=500, read_len=3000):
+    """examples/pacbio_run.py's world (seed 5) as LastGraph + FASTQ: a
+    chain of long nodes (2-8 kb) alternating with short ones (80-400 bp),
+    and long reads with 10 % errors (4 % substitutions, 3 % insertions,
+    3 % deletions), half of them reverse-complemented.  Returns the truth
+    genome's codes."""
+    from gaml_tpu.core import dna
+
+    rng = np.random.default_rng(5)
+    segments = []
+    remaining = genome_kb * 1000
+    while remaining > 0:
+        ln = int(rng.integers(2000, 8000)) if len(segments) % 2 == 0 \
+            else int(rng.integers(80, 400))
+        ln = min(ln, remaining)
+        segments.append(rng.integers(0, 4, ln).astype(np.uint8))
+        remaining -= ln
+    genome = np.concatenate(segments)
+    lines = [f"{len(segments)}\t0\t0\t1"]
+    for i, sq in enumerate(segments):
+        lines += [f"NODE\t{i + 1}", dna.decode_seq(sq),
+                  dna.decode_seq(dna.revcomp(sq))]
+    lines += [f"ARC\t{i + 1}\t{i + 2}" for i in range(len(segments) - 1)]
+    with open(os.path.join(d, "LastGraph"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+    def noisy(read, err=0.1):
+        out = []
+        for c in read:
+            u = rng.random()
+            if u < err * 0.4:
+                out.append(int(rng.integers(0, 4)))
+            elif u < err * 0.7:
+                out.append(int(c))
+                out.append(int(rng.integers(0, 4)))
+            elif u < err:
+                continue
+            else:
+                out.append(int(c))
+        return np.array(out, dtype=np.uint8)
+
+    with open(os.path.join(d, "pb.fq"), "w") as f:
+        for i in range(n_reads):
+            p = int(rng.integers(0, len(genome) - read_len))
+            r = noisy(genome[p:p + read_len])
+            if rng.random() < 0.5:
+                r = dna.revcomp(r)
+            sq = dna.decode_seq(r)
+            f.write(f"@pb{i}\n{sq}\n+\n{'I' * len(sq)}\n")
+    return genome
+
+
+def pacbio_readsets(d, graph):
+    """A native-route PacbioReadSet and a copy adopted into the port
+    (same reads and anchors, separate alignment caches)."""
+    from gaml_tpu.scoring.pacbio import PacbioReadSet
+
+    sets = []
+    for name in ("nat", "dev"):
+        rs = PacbioReadSet(os.path.join(d, f"pb_{name}"),
+                           os.path.join(d, "pb.fq"), PB_MATCH, PB_MISMATCH)
+        rs.preprocess_reads()
+        sets.append(rs)
+    nat, dev = sets
+    nat.compute_anchors(graph, persist=False)
+    for attr in ("anchors_cache", "anchors_begin", "anchors_end",
+                 "anchors_reverse"):
+        setattr(dev, attr, getattr(nat, attr))
+    return nat, dev
+
+
+def with_min_cells(value, fn, *args):
+    old = os.environ.get("GAML_PB_DEVICE_MIN_CELLS")
+    os.environ["GAML_PB_DEVICE_MIN_CELLS"] = str(value)
+    try:
+        return fn(*args)
+    finally:
+        if old is None:
+            del os.environ["GAML_PB_DEVICE_MIN_CELLS"]
+        else:
+            os.environ["GAML_PB_DEVICE_MIN_CELLS"] = old
+
+
+NATIVE = 1 << 62  # GAML_PB_DEVICE_MIN_CELLS that keeps every batch native
+
+
+def route(device):
+    """The dp_cells key of the port's forward batches on ``device``."""
+    return "cuda" if device.type == "cuda" else "torch"
+
+
+def phase_pacbio_scoring(device, d, reps=3):
+    """The start walks' bulk precompute and walk scores on the port's
+    read set (every batch on ``device``) against the native route:
+    positions equal, logprobs within rel 1e-4, abs 1e-3 (the bound of
+    tests/test_pacbio.py's device-route tests).  Then a ladder of batch
+    sizes over that precompute's jobs, timing each route, to find the
+    crossover in DP cells (the smallest rung from which the card wins
+    every rung)."""
+    from gaml_tpu.core.io import load_lastgraph
+    from gaml_tpu_torch.scoring.pacbio import adopt_pacbio_readset
+
+    t0 = time.perf_counter()
+    graph = load_lastgraph(os.path.join(d, "LastGraph"))
+    nat, dev = pacbio_readsets(d, graph)
+    t_setup = time.perf_counter() - t0
+    walks = [[i] for i in range(0, graph.num_nodes, 2)
+             if graph.node_len(i) > 500]
+    adopt_pacbio_readset(dev, device)
+    batches, dp_s = [], {}
+
+    def recorded(rs, tag):
+        orig = rs._forward_batch
+
+        def rec(seq, jobs, extents=None):
+            t0 = time.perf_counter()
+            out = orig(seq, jobs, extents)
+            dp_s[tag] = dp_s.get(tag, 0.0) + time.perf_counter() - t0
+            if tag == "device":
+                batches.append((seq, jobs, extents))
+            return out
+
+        rs._forward_batch = rec
+
+    recorded(nat, "native")
+    recorded(dev, "device")
+    t0 = time.perf_counter()
+    with_min_cells(NATIVE, nat.precompute_ranges_for_paths, graph, walks)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with_min_cells(0, dev.precompute_ranges_for_paths, graph, walks)
+    sync(device)
+    t_dev = time.perf_counter() - t0
+    del nat._forward_batch, dev._forward_batch
+    check(set(nat.dp_cells) == {"native"}, f"native route: {nat.dp_cells}")
+    check(set(dev.dp_cells) == {route(device)}, f"port: {dev.dp_cells}")
+    n_al, worst = 0, 0.0
+    for w in walks:
+        pn, tn = with_min_cells(NATIVE, nat.get_read_probabilities, graph, w)
+        pd, td = with_min_cells(0, dev.get_read_probabilities, graph, w)
+        check(tn == td, f"walk {w}: total length {td} vs native {tn}")
+        for rid, (a, b) in enumerate(zip(pn, pd)):
+            check([p for p, _ in a] == [p for p, _ in b],
+                  f"walk {w} read {rid}: positions differ")
+            for (_p, x), (_q, y) in zip(a, b):
+                check(np.isfinite(y) and abs(y - x) <= 1e-3 + 1e-4 * abs(x),
+                      f"walk {w} read {rid}: logprob {y} vs native {x}")
+                worst = max(worst, abs(y - x))
+                n_al += 1
+    check(n_al > 0, "no read aligned")
+    seq, jobs, extents = max(batches, key=lambda b: len(b[1]))
+    width = dev.forward_width
+    ladder = []
+
+    def rung(sub, ext):
+        t_n = timer(device, lambda: with_min_cells(
+            NATIVE, nat._forward_batch, seq, sub, ext), reps, host_clock=True)
+        t_d = timer(device, lambda: with_min_cells(
+            0, dev._forward_batch, seq, sub, ext), reps, host_clock=True)
+        ladder.append({"jobs": len(sub),
+                       "cells": sum(len(j[0]) for j in sub) * width,
+                       "native_ms": t_n, "device_ms": t_d})
+
+    # batches smaller than one job: prefixes of the first job's read
+    q, centers, *meta = jobs[0]
+    for n in (128, 256, 512, 1024, 2048):
+        if n < len(q):
+            rung([(q[:n], centers[:n + 1], *meta)],
+                 extents[:1] if extents else None)
+    # then 1, 2, 4, ... jobs, until the card has won three rungs in a row
+    k = 1
+    while True:
+        rung(jobs[:k], extents[:k] if extents else None)
+        if k == len(jobs) or all(r["device_ms"] < r["native_ms"]
+                                 for r in ladder[-3:]):
+            break
+        k = min(2 * k, len(jobs))
+    crossover = next((r["cells"] for i, r in enumerate(ladder)
+                      if all(x["device_ms"] < x["native_ms"]
+                             for x in ladder[i:])), None)
+    res = {"walks": len(walks), "reads": nat.reads_num,
+           "precompute_jobs": sum(len(b[1]) for b in batches),
+           "dp_cells": dev.dp_cells[route(device)],
+           "native_s": t_nat, "device_s": t_dev, "setup_s": t_setup,
+           "native_dp_s": dp_s["native"], "device_dp_s": dp_s["device"],
+           "alignments": n_al, "max_abs_err": worst,
+           "crossover_cells": crossover}
+    print("  " + json.dumps(res), flush=True)
+    for r in ladder:
+        print("  ladder " + json.dumps(r), flush=True)
+    return res
+
+
+def write_pacbio_config(d, name, iterations):
+    cfg = os.path.join(d, f"{name}.cfg")
+    with open(cfg, "w") as f:
+        f.write("\n".join([
+            f"graph={d}/LastGraph", f"max_iterations={iterations}",
+            f"output_prefix={d}/{name}", "seed=47", "", "[pb]",
+            "type=pacbio", f"filename={d}/pb.fq",
+            f"mismatch_prob={PB_MISMATCH}", "penalty_constant=0.0001",
+            "penalty_step=100", "advice=1", f"cache_prefix={d}/{name}_pb",
+            ""]))
+    return cfg
+
+
+def device_busy_ms(prof):
+    """Summed device time of a profile (CUDA activity only), or None when
+    the profiler saw none."""
+    total = 0.0
+    for e in prof.key_averages():
+        total += getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)) or 0
+    return total / 1e3 if total > 0 else None
+
+
+def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
+    """The port's CLI on ``device`` (in this process, under the profiler)
+    against gaml_tpu.cli on the native host route, both from the same
+    world and config seed: best score within 0.05, k-mer recall within
+    0.005, junk no higher than native + 0.001, NG50 ratio in
+    [0.95, 1.06] (tests/test_pacbio.py::test_f32_route_anneal_quality_
+    bound, PARITY.md)."""
+    import contextlib
+    import io
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from asm_quality import assembly_quality
+    from gaml_tpu.core import dna
+    from gaml_tpu_torch import cli
+    from gaml_tpu_torch.ops import forward_cuda
+
+    truth = dna.decode_seq(genome)
+    env = dict(os.environ, GAML_PB_DEVICE_MIN_CELLS=str(NATIVE))
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gaml_tpu.cli",
+         write_pacbio_config(d, "nat", iterations)],
+        cwd=d, env=env, capture_output=True, text=True, timeout=timeout)
+    nat_wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"gaml_tpu.cli exited {proc.returncode}:\n"
+          f"{proc.stderr[-4000:]}")
+    nat_tr = trace(proc.stdout)
+
+    cfg = write_pacbio_config(d, "dev", iterations)
+    buf = io.StringIO()
+    forward_cuda.LAUNCHES["banded_forward"] = 0
+    acts = [torch.profiler.ProfilerActivity.CUDA
+            if device.type == "cuda" else torch.profiler.ProfilerActivity.CPU]
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        with torch.profiler.profile(activities=acts) as prof, \
+                contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            rc = cli.main([cfg, "--device", str(device)])
+            sync(device)
+            dev_wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    launches = forward_cuda.LAUNCHES["banded_forward"]
+    out = buf.getvalue()
+    check(rc == 0, f"gaml_tpu_torch.cli exited {rc}")
+    dev_tr = trace(out)
+    summary = json.loads(out.strip().splitlines()[-1]
+                         .split("device work: ", 1)[1])
+    check(len(dev_tr) >= iterations and len(nat_tr) >= iterations,
+          f"short traces: {len(dev_tr)} / {len(nat_tr)} itnum lines")
+    check(summary["launches"]["banded_forward"] == launches and
+          (device.type != "cuda" or launches > 0),
+          f"K5 was not launched by the anneal: {summary}")
+    check(summary["pacbio_cells"].get(route(device), 0) > 0,
+          f"no forward-DP cell on {device}: {summary}")
+    best_dev, best_nat = float(dev_tr[-1].split()[9]), \
+        float(nat_tr[-1].split()[9])
+    q_dev = assembly_quality(truth, os.path.join(d, "dev.fasta"))
+    q_nat = assembly_quality(truth, os.path.join(d, "nat.fasta"))
+    check(abs(best_dev - best_nat) < 0.05,
+          f"best prob {best_dev} vs native {best_nat}")
+    check(abs(q_dev["kmer_recall"] - q_nat["kmer_recall"]) <= 0.005,
+          f"k-mer recall {q_dev} vs native {q_nat}")
+    check(q_dev["kmer_junk"] <= q_nat["kmer_junk"] + 0.001,
+          f"k-mer junk {q_dev} vs native {q_nat}")
+    check(q_nat["ng50"] == 0 or 0.95 <= q_dev["ng50"] / q_nat["ng50"] <= 1.06,
+          f"NG50 {q_dev} vs native {q_nat}")
+    busy = device_busy_ms(prof)
+    diff = first_difference(dev_tr, nat_tr)
+    res = {"iterations": iterations, "dev_wall_s": dev_wall,
+           "nat_wall_s": nat_wall, "dev_moves_per_s": iterations / dev_wall,
+           "nat_moves_per_s": iterations / nat_wall,
+           "best_prob": best_dev, "nat_best_prob": best_nat,
+           "quality": q_dev, "nat_quality": q_nat,
+           "pacbio_cells": summary["pacbio_cells"], "launches": launches,
+           "device_busy_ms": busy,
+           "device_busy_share": None if busy is None
+           else busy / 1e3 / dev_wall,
+           "vs_native_trace": "identical" if diff is None else
+           f"first difference at line {diff[0]}"}
+    print("  " + json.dumps(res), flush=True)
     return res
 
 
@@ -455,11 +875,24 @@ def main():
               launches=rescore_launches)
     run_phase("3 rescore 2.8 Mb", phase_rescore, device, 2_800_000, 300_000)
     anneal = run_phase("4 anneal", phase_anneal, device)
+    fwd = run_phase("5 K5", phase_forward_kernel, device)
+    with tempfile.TemporaryDirectory(prefix="gaml_smoke_pb_") as d:
+        genome = write_pacbio_world(d)
+        run_phase("6 pacbio scoring", phase_pacbio_scoring, device, d)
+        pb = run_phase("7 pacbio anneal", phase_pacbio_anneal, device, d,
+                       genome)
     check("jax" not in sys.modules, "jax was imported")
+    launches = dict(anneal["launches"], banded_forward=pb["launches"])
+    kern["banded_forward"] = {
+        k: (fwd[64][k] if k != "max_abs_err" else
+            max(fwd[64][k], fwd[128][k]))
+        for k in ("max_abs_err", "ms", "plain_ms")}
+    kern["banded_forward"].update(width=64, ms_w128=fwd[128]["ms"],
+                                  plain_ms_w128=fwd[128]["plain_ms"])
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
-             launches=anneal["launches"][name], **kern[name])
-        for name, replaces in KERNELS.items()]}), flush=True)
+        dict(name=name, route="cuda", source=source, replaces=replaces,
+             launches=launches[name], **kern[name])
+        for name, (source, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

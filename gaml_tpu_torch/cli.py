@@ -4,18 +4,19 @@ Usage: python -m gaml_tpu_torch.cli <config> [--device cuda|cpu]
                                     [--resume prefix]
 
 The same run as ``python -m gaml_tpu.cli <config> --backend device``,
-with the short-read device path on torch: read sets are built with the
-device backend and adopted into the port (scoring.readset).  PacBio
-libraries run on the native host route.  With ``--device cpu`` the
-kernels' plain torch versions run instead of the CUDA kernels.  The last
-line of output reports the device work: window batches, candidates and
-kernel launches.
+with the device paths on torch: short-read sets are built with the device
+backend and adopted into the port (scoring.readset), and PacBio read sets
+send their forward-DP batches to the port's engine (scoring.pacbio, at
+their own band width; batches below GAML_PB_DEVICE_MIN_CELLS cells stay
+on the native host kernel).  With ``--device cpu`` the kernels' plain
+torch versions run instead of the CUDA kernels.  The last line of output
+reports the device work: window batches, candidates, PacBio forward-DP
+cells by route and kernel launches.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 
 import torch
@@ -28,7 +29,9 @@ from gaml_tpu.optimize.anneal import Optimizer
 from gaml_tpu.optimize.settings import AssemblySettings
 from gaml_tpu.scoring.calculator import ProbCalculator
 
-from .ops.extend_cuda import LAUNCHES
+from .native import load_native
+from .ops import extend_cuda, forward_cuda
+from .scoring.pacbio import adopt_pacbio_readset
 from .scoring.readset import adopt_readset
 
 # options of gaml_tpu.cli whose device code is not ported yet
@@ -68,6 +71,7 @@ def main(argv=None) -> int:
         print("--device cuda: no CUDA device is available", file=sys.stderr)
         return 2
 
+    load_native()
     configs, read_set_configs = load_config(args.config)
     if "graph" not in configs and "starting_assembly" not in configs:
         print("Missing graph in config", file=sys.stderr)
@@ -91,10 +95,8 @@ def main(argv=None) -> int:
              + [rs for _c, pair in paired for rs in pair]}
     for rs in short.values():
         adopt_readset(rs, device)
-    if pacbio:
-        # the long-read device route is ROADMAP A8: keep every forward-DP
-        # batch on the native kernel
-        os.environ["GAML_PB_DEVICE_MIN_CELLS"] = str(1 << 62)
+    for _cfg, rs in pacbio:
+        adopt_pacbio_readset(rs, device)
     longest_read = get_longest_read(single, paired, pacbio)
 
     opt = Optimizer(graph, pc, settings, advice_paired, advice_pacbio,
@@ -105,11 +107,17 @@ def main(argv=None) -> int:
         paths = load_checkpoint(opt, args.resume)
     opt.run(paths)
     aligners = [rs.aligner for rs in short.values()]
+    pacbio_cells = {}
+    for _cfg, rs in pacbio:
+        for k, v in getattr(rs, "dp_cells", {}).items():
+            pacbio_cells[k] = pacbio_cells.get(k, 0) + v
     print("device work: " + json.dumps({
         "device": str(device),
         "batches": sum(a.device_batches for a in aligners),
         "candidates": sum(a.device_candidates for a in aligners),
-        "launches": dict(LAUNCHES)}), flush=True)
+        "pacbio_cells": pacbio_cells,
+        "launches": {**extend_cuda.LAUNCHES, **forward_cuda.LAUNCHES}}),
+        flush=True)
     return 0
 
 

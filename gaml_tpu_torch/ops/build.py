@@ -1,7 +1,8 @@
 """Build the port's CUDA sources with nvcc on first use; load with ctypes.
 
-The sources in ``gaml_tpu_torch/csrc`` compile into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds).
+The sources in ``gaml_tpu_torch/csrc`` compile, one nvcc process each and
+all at once, into objects linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds).
 The library lands in ``gaml_tpu_torch/_build`` under a name derived from
 the sources' content, so an edited source rebuilds and concurrent
 processes share one finished build.  Nothing here runs at import time.
@@ -19,9 +20,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("band_dp.cu",)
+SOURCES = ("band_dp.cu", "banded_forward.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -52,16 +53,39 @@ def _library_path(srcs) -> str:
 
 def _compile(srcs, so: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    tmp = f"{so}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+            for s, o in zip(srcs, objs)]
+    cmds.append([nvcc, "-shared", "-o", f"{tmp}.so", *objs])
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds[:-1]]
+    log = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        proc = subprocess.run(cmds[-1], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(f"{tmp}.so", so)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = proc.stdout + proc.stderr
+    build_info["log"] = "".join(log)
 
 
 def load():
@@ -81,6 +105,10 @@ def load():
         lib.gaml_swar_cost.restype = i
         lib.gaml_swar_cost_accept.argtypes = [p, p, p, p, i, i, p, p, p]
         lib.gaml_swar_cost_accept.restype = i
+        lib.gaml_banded_forward.argtypes = [p, i, i, p, p, i, p, i, p, p, p,
+                                            p, i, i, ctypes.c_float,
+                                            ctypes.c_float, p, p]
+        lib.gaml_banded_forward.restype = i
         build_info["path"] = so
         _lib = lib
         return lib

@@ -4,14 +4,18 @@ DeviceCandGen: same candidates in the same emission order."""
 import numpy as np
 import pytest
 
-from gaml_tpu.native import get_lib, query_windows_batch
+from gaml_tpu.native import query_windows_batch
 from gaml_tpu.ops.candgen_device import DeviceCandGen as JaxCandGen
+from gaml_tpu_torch.native import load_native
 from gaml_tpu_torch.ops.candgen_device import DeviceCandGen
 
 from test_candgen_device import make_bundle, sample_world
 
-pytestmark = pytest.mark.skipif(get_lib() is None,
-                                reason="native library unavailable")
+
+@pytest.fixture(autouse=True)
+def native_library():
+    if load_native() is None:
+        pytest.skip("native library unavailable")
 
 
 def world_single():

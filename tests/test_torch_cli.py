@@ -1,6 +1,7 @@
 """The port's CLI (gaml_tpu_torch.cli) end to end on the CPU: the same
 anneal trace and output files as gaml_tpu.cli --backend device, and no
 jax anywhere in the port's process."""
+import json
 import os
 import subprocess
 import sys
@@ -9,13 +10,17 @@ import numpy as np
 import pytest
 import torch
 
-from gaml_tpu.native import get_lib
+from gaml_tpu_torch.native import load_native
 
 from fixtures import lastgraph_text, random_seq, write_fastq
 from test_scoring import make_pairs
 
-pytestmark = pytest.mark.skipif(get_lib() is None,
-                                reason="native library unavailable")
+
+@pytest.fixture(autouse=True)
+def native_library():
+    if load_native() is None:
+        pytest.skip("native library unavailable")
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -125,5 +130,69 @@ def test_cli_refuses_missing_cuda_and_unported_options(tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert port_main([config, "--device", "cuda"]) != 0
     assert port_main([config, "--device", "cpu", "--paired-device"]) != 0
+    assert port_main([config, "--device", "cpu", "--pacbio-device"]) == 2
     assert port_main([config, "--device", "cpu",
                       "--distributed", "localhost:1234"]) != 0
+
+
+def write_pacbio_world(tmp_path, iterations=8):
+    """A three-node chain and 16 long reads (8 % errors, both strands) as
+    LastGraph + FASTQ, with a config of one pacbio advice library."""
+    from gaml_tpu.core import dna
+
+    from test_forward_kernel import noisy_copy
+
+    rng = np.random.default_rng(2)
+    node_seqs = [random_seq(rng, 900), random_seq(rng, 120),
+                 random_seq(rng, 1200)]
+    (tmp_path / "LastGraph").write_text(
+        lastgraph_text(node_seqs, [(1, 2), (2, 3)]))
+    genome = dna.encode_seq("".join(node_seqs))
+    reads = []
+    for _ in range(16):
+        p = int(rng.integers(0, len(genome) - 400))
+        r = noisy_copy(rng, genome[p:p + 400], err=0.08)
+        reads.append(dna.decode_seq(dna.revcomp(r) if rng.random() < 0.5
+                                    else r))
+    write_fastq(str(tmp_path / "pb.fq"), reads, prefix="pb")
+    cfg = tmp_path / "pb.cfg"
+    cfg.write_text(f"""graph={tmp_path}/LastGraph
+max_iterations={iterations}
+output_prefix={tmp_path}/pbout
+seed=3
+
+[pb]
+type=pacbio
+filename={tmp_path}/pb.fq
+mismatch_prob=0.0375
+penalty_constant=0.0001
+penalty_step=100
+advice=1
+cache_prefix={tmp_path}/pbcache
+""")
+    return str(cfg)
+
+
+def test_pacbio_config_runs_on_port_without_jax(tmp_path):
+    """A pacbio library on the port's CLI: its forward-DP batches reach
+    the engine (the plain K5 on the CPU), and jax never loads."""
+    config = write_pacbio_world(tmp_path)
+    code = (
+        "import sys\n"
+        "from gaml_tpu_torch.cli import main\n"
+        f"rc = main([{config!r}, '--device', 'cpu'])\n"
+        "assert rc == 0, rc\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('NOJAX-OK')\n")
+    env = dict(os.environ, GAML_PB_DEVICE_MIN_CELLS="0")
+    env.pop("JAX_PLATFORMS", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    assert lines[-1] == "NOJAX-OK"
+    summary = json.loads(lines[-2].split("device work: ", 1)[1])
+    assert summary["pacbio_cells"].get("torch", 0) > 0
+    assert summary["launches"]["banded_forward"] == 0  # no card: no launch
+    assert len(itnum_lines(proc.stdout)) >= 8
+    assert (tmp_path / "pbout.fasta").stat().st_size > 0

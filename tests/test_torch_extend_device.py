@@ -6,11 +6,12 @@ import pytest
 
 from gaml_tpu.align.aligner import spell_subpath
 from gaml_tpu.core import dna
-from gaml_tpu.native import align_windows_batch, get_lib, query_windows_batch
+from gaml_tpu.native import align_windows_batch, query_windows_batch
 from gaml_tpu.ops.extend import (batch_extend_arrays, extend_staged,
                                  stage_candidates_uniform)
 from gaml_tpu.ops.extend_device import DeviceExtender as JaxExtender
 from gaml_tpu_torch.align.aligner import window_columns
+from gaml_tpu_torch.native import load_native
 from gaml_tpu_torch.ops.extend_device import DeviceExtender, extend_reads
 from gaml_tpu_torch.ops.rescore_device import DeviceRescorer
 
@@ -19,8 +20,11 @@ from test_candgen_device import make_bundle, sample_world
 from test_extend_kernel import random_case, seeds_of
 from test_scoring import make_readset
 
-pytestmark = pytest.mark.skipif(get_lib() is None,
-                                reason="native library unavailable")
+
+@pytest.fixture(autouse=True)
+def native_library():
+    if load_native() is None:
+        pytest.skip("native library unavailable")
 
 
 def native_batch(bundle, seqs):

@@ -1,7 +1,7 @@
-"""Kernels K1/K2 of the port (gaml_tpu_torch.ops.extend_cuda): the
-wrappers' CPU route and input checks, and on a CUDA card the kernels
-against their plain versions.  Imports no jax, so the card test runs on a
-machine without it:
+"""Kernels of the port: K1/K2 (gaml_tpu_torch.ops.extend_cuda), the
+wrappers' CPU route and input checks, and on a CUDA card K1, K2 and K5
+(gaml_tpu_torch.ops.forward_cuda) against their plain versions.  Imports
+no jax, so the card tests run on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -9,10 +9,12 @@ import numpy as np
 import pytest
 import torch
 
+from gaml_tpu_torch.ops import forward_cuda
 from gaml_tpu_torch.ops.extend import PAD, SENT_GEN, SENT_READ
 from gaml_tpu_torch.ops.extend_cuda import (swar_cost, swar_cost_accept,
                                             swar_cost_accept_ref,
                                             swar_cost_ref)
+from gaml_tpu_torch.ops.forward_device import ForwardDeviceEngine, guide_steps
 
 
 def random_band_inputs(seed, n, rmax):
@@ -61,3 +63,50 @@ def test_kernel_matches_plain_version_on_card(kernel):
     assert torch.equal(c, c_ref)
     m = c_ref <= 6
     assert torch.equal(a[m], a_ref[m])
+
+
+def resident_jobs(seed, n_reads=10, c=64, seq_len=700):
+    """Random jobs over a read set: (read_seqs, seq, rid, strand, rlens,
+    centers, gstarts, glens), as test_resident_staging_bit_equal_dense."""
+    rng = np.random.default_rng(seed)
+    seq = rng.integers(0, 4, seq_len).astype(np.uint8)
+    read_seqs = [rng.integers(0, 5, rng.integers(60, 200)).astype(np.uint8)
+                 for _ in range(n_reads)]
+    rid = rng.integers(0, n_reads, c).astype(np.int32)
+    strand = rng.integers(0, 2, c).astype(np.uint8)
+    rlens = np.array([len(read_seqs[r]) for r in rid], np.int32)
+    rmax = 256
+    centers = np.zeros((c, rmax + 1), np.int32)
+    for i in range(c):
+        steps = rng.integers(0, 3, rmax)
+        centers[i] = np.clip(int(rng.integers(0, 300))
+                             + np.concatenate([[0], np.cumsum(steps)]),
+                             0, seq_len)
+    gstarts = rng.integers(0, 50, c).astype(np.int32)
+    glens = np.minimum(seq_len - gstarts,
+                       rng.integers(300, 650, c)).astype(np.int32)
+    return read_seqs, seq, rid, strand, rlens, centers, gstarts, glens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 128])
+def test_banded_forward_matches_plain_version_on_card(width):
+    """K5 on the card against its plain version on the same inputs; both
+    float32 with different exp/log1p and scan order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    (read_seqs, seq, rid, strand, rlens, centers, gstarts,
+     glens) = resident_jobs(6, n_reads=40, c=300, seq_len=2000)
+    eng = ForwardDeviceEngine(read_seqs, "cuda")
+    row = torch.from_numpy((rid + strand.astype(np.int32) * len(read_seqs))
+                           .astype(np.int32)).cuda()
+    args = [eng.rows, row] + [
+        torch.from_numpy(np.ascontiguousarray(x)).cuda()
+        for x in (seq, guide_steps(centers), centers[:, 0].astype(np.int32),
+                  gstarts, glens, rlens)]
+    lm, lmm = float(np.log(0.85)), float(np.log(0.0375))
+    got = forward_cuda.banded_forward(*args, lm, lmm, width)
+    want = forward_cuda.banded_forward_ref(*args, lm, lmm, width)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-4 * want.abs() + 1e-3).all()

@@ -3,15 +3,18 @@ against the JAX DeviceRescorer on the test_rescore_device worlds."""
 import numpy as np
 import pytest
 
-from gaml_tpu.native import get_lib
 from gaml_tpu.ops.rescore_device import DeviceRescorer as JaxRescorer
+from gaml_tpu_torch.native import load_native
 from gaml_tpu_torch.ops.rescore_device import DeviceRescorer
 
 from test_candgen_device import make_bundle, sample_world
 from test_rescore_device import MATCH, MISMATCH, MPB, MPS
 
-pytestmark = pytest.mark.skipif(get_lib() is None,
-                                reason="native library unavailable")
+
+@pytest.fixture(autouse=True)
+def native_library():
+    if load_native() is None:
+        pytest.skip("native library unavailable")
 
 
 def single_window():
