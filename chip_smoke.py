@@ -30,7 +30,21 @@ each phase printing its results and seconds:
 7. a PacBio anneal through the port's CLI (``--device cuda``, in this
    process, under the profiler) against ``python -m gaml_tpu.cli`` on the
    native host route, held to the assembly-level bound of
-   tests/test_pacbio.py::test_f32_route_anneal_quality_bound.
+   tests/test_pacbio.py::test_f32_route_anneal_quality_bound;
+8. the exact band DP (dp_rows_exact, the counterpart of K3/K4a/K4b)
+   against its plain version at phase 1's inputs, one launch and the
+   stacked two-direction launch; the K6 tool
+   (gaml_tpu_torch.tools.swar_kernel_proto); and the phase-2 rescore on
+   the K3 route (GAML_SWAR_BACKWARD=0) against the default route;
+9. the device likelihood models at S. aureus scale: SingleEndModel on
+   phase 3's world (host candidates) against the model on the CPU and
+   DeviceRescorer.rescore, and PairedEndModel on the phase-4 world's
+   frag library against the host paired scorer over the start walks;
+10. a mixed-length anneal: phase 4's world with 20 % of each frag mate
+   file's reads quality-trimmed (no native bundle, so its windows run
+   through the exact kernel while the advice library stays on K1/K2),
+   ``--device cuda`` against ``--device cpu``, reported against
+   ``gaml_tpu.cli --backend bfs``.
 
 Any failed check raises and exits non-zero.  The last two lines are a
 JSON object describing each kernel and {"ok": true, "device": {...}}.
@@ -51,14 +65,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MATCH, MISMATCH = 0.96, 0.01
 MPB, MPS = -0.7, -10.0
 READ_LEN = 100
-KERNELS = {  # name: (source, the TPU kernel it replaces)
-    "swar_cost": ("gaml_tpu_torch/csrc/band_dp.cu",
-                  "gaml_tpu/ops/extend_pallas.py:467"),
-    "swar_cost_accept": ("gaml_tpu_torch/csrc/band_dp.cu",
-                         "gaml_tpu/ops/extend_pallas.py:600"),
-    "banded_forward": ("gaml_tpu_torch/csrc/banded_forward.cu",
-                       "gaml_tpu/ops/forward_pallas.py:134"),
-}
+BAND_DP = "gaml_tpu_torch/csrc/band_dp.cu"
+KERNELS = (  # (TPU kernel, entry name, source, the pallas_call it replaces)
+    ("K1", "swar_cost", BAND_DP, "gaml_tpu/ops/extend_pallas.py:467"),
+    ("K2", "swar_cost_accept", BAND_DP, "gaml_tpu/ops/extend_pallas.py:600"),
+    ("K3", "dp_rows_exact:K3", BAND_DP, "gaml_tpu/ops/extend_pallas.py:710"),
+    ("K4a", "dp_rows_exact:K4a", BAND_DP,
+     "gaml_tpu/ops/extend_pallas.py:287"),
+    ("K4b", "dp_rows_exact:K4b", BAND_DP,
+     "gaml_tpu/ops/extend_pallas.py:231"),
+    ("K5", "banded_forward", "gaml_tpu_torch/csrc/banded_forward.cu",
+     "gaml_tpu/ops/forward_pallas.py:134"),
+    ("K6", "swar_cost:K6", BAND_DP, "tools/swar_kernel_proto.py:127"),
+)
 PB_MATCH, PB_MISMATCH = 0.85, 0.0375  # config mismatch_prob=0.0375
 
 
@@ -262,8 +281,9 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None):
                host_clock=True)
     if launches is not None:
         launches.update(extend_cuda.LAUNCHES)
-        check(device.type != "cuda" or all(v > 0 for v in launches.values()),
-              f"a kernel was not launched by the rescore: {launches}")
+        check(device.type != "cuda" or all(
+            launches[k] > 0 for k in ("swar_cost", "swar_cost_accept")),
+            f"a kernel was not launched by the rescore: {launches}")
     check(n_tot == ref[2] == cap, f"n_total {n_tot} vs cpu {ref[2]} "
           f"vs native {cap}")
     check(zeros == ref[1], f"zero_reads {zeros} vs cpu {ref[1]}")
@@ -341,9 +361,11 @@ def write_anneal_world(d, genome_mb=2.8, n_frag=150_000, n_adv=30_000):
     return len(genome), len(nodes)
 
 
-def write_config(d, name, iterations):
+def write_config(d, name, iterations, frag="f"):
+    """The anneal config; ``frag`` names the frag library's FASTQ pair
+    (<frag>1.fq, <frag>2.fq)."""
     cfg = os.path.join(d, f"{name}.cfg")
-    libs = (("frag", "f", 180, 20, 0.00007, 30, False),
+    libs = (("frag", frag, 180, 20, 0.00007, 30, False),
             ("adv", "a", 3700, 350, 0.00013, 3000, True))
     text = [f"graph={d}/LastGraph", f"max_iterations={iterations}",
             f"output_prefix={d}/{name}", "seed=47", ""]
@@ -392,59 +414,67 @@ def first_difference(a, b):
     return None
 
 
-def phase_anneal(device, iterations=1000, check_iterations=200,
-                 world=None, timeout=450):
-    """The port's CLI on ``device`` against --device cpu (must agree) and
-    against gaml_tpu.cli --backend bfs (reported)."""
-    with tempfile.TemporaryDirectory(prefix="gaml_smoke_") as d:
-        t0 = time.perf_counter()
-        g_len, n_nodes = write_anneal_world(d, **(world or {}))
-        t_world = time.perf_counter() - t0
-        dev_out, dev_wall = run_cli(
-            "gaml_tpu_torch.cli", write_config(d, "dev", iterations),
-            ["--device", str(device)], timeout)
-        bfs_out, bfs_wall = run_cli(
-            "gaml_tpu.cli", write_config(d, "bfs", iterations),
-            ["--backend", "bfs"], timeout)
-        cpu_out, cpu_wall = run_cli(
-            "gaml_tpu_torch.cli", write_config(d, "cpu", check_iterations),
-            ["--device", "cpu"], timeout)
-        dev_tr, bfs_tr, cpu_tr = trace(dev_out), trace(bfs_out), \
-            trace(cpu_out)
-        summary = json.loads(dev_out.strip().splitlines()[-1]
-                             .split("device work: ", 1)[1])
-        check(len(dev_tr) >= iterations and len(cpu_tr) >= check_iterations,
-              f"short traces: {len(dev_tr)} / {len(cpu_tr)} itnum lines")
-        check(dev_tr[:len(cpu_tr)] == cpu_tr,
-              f"{device} and cpu traces differ: "
-              f"{first_difference(dev_tr, cpu_tr)}")
-        check(summary["batches"] > 0 and summary["candidates"] > 0,
-              f"no window batch reached the device: {summary}")
-        check(device.type != "cuda" or all(
-            summary["launches"][k] > 0
-            for k in ("swar_cost", "swar_cost_accept")),
-            f"a kernel was not launched by the anneal: {summary}")
-        best = float(dev_tr[-1].split()[9])
-        check(np.isfinite(best), f"best prob {best}")
-        files = {}
-        for ext in ("walks", "fasta"):
-            with open(os.path.join(d, f"dev.{ext}"), "rb") as f:
-                a = f.read()
-            with open(os.path.join(d, f"bfs.{ext}"), "rb") as f:
-                b = f.read()
-            check(len(a) > 0, f"empty dev.{ext}")
-            files[ext] = "identical" if a == b else "differ"
-        diff = first_difference(dev_tr, bfs_tr)
-    res = {"genome": g_len, "nodes": n_nodes, "iterations": iterations,
+def anneal_against_cpu_and_bfs(device, d, iterations, check_iterations,
+                               timeout, launched, frag="f", tag=""):
+    """The port's CLI on ``device`` against --device cpu (must agree over
+    the cpu run's iterations) and against gaml_tpu.cli --backend bfs
+    (reported), on the world in ``d``; outputs and caches are named
+    <tag>dev, <tag>bfs, <tag>cpu.  Every kernel named in ``launched``
+    must have been launched by the ``device`` run."""
+    dev, bfs, cpu = (tag + x for x in ("dev", "bfs", "cpu"))
+    dev_out, dev_wall = run_cli(
+        "gaml_tpu_torch.cli", write_config(d, dev, iterations, frag),
+        ["--device", str(device)], timeout)
+    bfs_out, bfs_wall = run_cli(
+        "gaml_tpu.cli", write_config(d, bfs, iterations, frag),
+        ["--backend", "bfs"], timeout)
+    cpu_out, cpu_wall = run_cli(
+        "gaml_tpu_torch.cli", write_config(d, cpu, check_iterations, frag),
+        ["--device", "cpu"], timeout)
+    dev_tr, bfs_tr, cpu_tr = trace(dev_out), trace(bfs_out), trace(cpu_out)
+    summary = json.loads(dev_out.strip().splitlines()[-1]
+                         .split("device work: ", 1)[1])
+    check(len(dev_tr) >= iterations and len(cpu_tr) >= check_iterations,
+          f"short traces: {len(dev_tr)} / {len(cpu_tr)} itnum lines")
+    check(dev_tr[:len(cpu_tr)] == cpu_tr,
+          f"{device} and cpu traces differ: "
+          f"{first_difference(dev_tr, cpu_tr)}")
+    check(summary["batches"] > 0 and summary["candidates"] > 0,
+          f"no window batch reached the device: {summary}")
+    check(device.type != "cuda" or all(
+        summary["launches"][k] > 0 for k in launched),
+        f"a kernel was not launched by the anneal: {summary}")
+    best = float(dev_tr[-1].split()[9])
+    check(np.isfinite(best), f"best prob {best}")
+    files = {}
+    for ext in ("walks", "fasta"):
+        with open(os.path.join(d, f"{dev}.{ext}"), "rb") as f:
+            a = f.read()
+        with open(os.path.join(d, f"{bfs}.{ext}"), "rb") as f:
+            b = f.read()
+        check(len(a) > 0, f"empty {dev}.{ext}")
+        files[ext] = "identical" if a == b else "differ"
+    diff = first_difference(dev_tr, bfs_tr)
+    res = {"iterations": iterations,
            "dev_wall_s": dev_wall, "bfs_wall_s": bfs_wall,
            "cpu_wall_s": cpu_wall, "cpu_iterations": check_iterations,
-           "world_s": t_world, "best_prob": best,
-           "batches": summary["batches"],
+           "best_prob": best, "batches": summary["batches"],
            "candidates": summary["candidates"],
            "launches": summary["launches"],
            "vs_bfs_trace": "identical" if diff is None else
            f"first difference at line {diff[0]}",
            "vs_bfs_files": files}
+    return res, diff
+
+
+def phase_anneal(device, d, world, iterations=1000, check_iterations=200,
+                 timeout=450):
+    """The anneal on the aureus world written to ``d`` (``world``: its
+    genome length, node count and seconds to write)."""
+    res, diff = anneal_against_cpu_and_bfs(
+        device, d, iterations, check_iterations, timeout,
+        ("swar_cost", "swar_cost_accept"))
+    res = dict(zip(("genome", "nodes", "world_s"), world), **res)
     print("  " + json.dumps(res), flush=True)
     if diff is not None:
         print(f"  {device}: {diff[1]}\n  bfs:  {diff[2]}", flush=True)
@@ -847,6 +877,292 @@ def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
     return res
 
 
+# ------------------------------------------------------------------ phase 8
+def reset_launches():
+    from gaml_tpu_torch.ops import extend_cuda
+
+    for k in extend_cuda.LAUNCHES:
+        extend_cuda.LAUNCHES[k] = 0
+    return extend_cuda.LAUNCHES
+
+
+def exact_against_plain(device, args, reps):
+    """dp_rows_exact on ``args`` against its plain version: c and a equal
+    everywhere (integers: the tolerance is exact), with both times."""
+    from gaml_tpu_torch.ops import extend_cuda as kc
+
+    (c, a), (c_ref, a_ref) = kc.dp_rows_exact(*args), \
+        kc.dp_rows_exact_ref(*args)
+    err = max(int((c - c_ref).abs().max()), int((a - a_ref).abs().max()))
+    n = args[0].shape[1]
+    check(err == 0, f"dp_rows_exact differs from its plain version by "
+          f"{err} at n={n}")
+    return {"n": n, "rmax": args[0].shape[0], "max_abs_err": err,
+            "above_saturation": int((c_ref > 7).sum()),
+            "ms": timer(device, lambda: kc.dp_rows_exact(*args), reps),
+            "plain_ms": timer(device, lambda: kc.dp_rows_exact_ref(*args),
+                              3)}
+
+
+def phase_exact(device, n=131072, rmax=96, rescore_world=(400_000, 100_000),
+                reps=20):
+    """The exact kernel at phase 1's inputs (one launch, K3's shape) and
+    stacked with a second draw (2n, the two-direction launch of K4b's
+    static path); the K6 tool, also held against the plain version; and
+    the phase-2 rescore on the K3 route (GAML_SWAR_BACKWARD=0), whose
+    score and zero_reads must equal the default route's."""
+    import torch
+
+    from gaml_tpu_torch.ops import extend_cuda as kc
+    from gaml_tpu_torch.ops.rescore_device import DeviceRescorer
+    from gaml_tpu_torch.tools import swar_kernel_proto
+
+    args = band_inputs(0, n, rmax, device)
+    stacked = tuple(torch.cat([x, y], dim=-1).contiguous() for x, y in
+                    zip(args, band_inputs(1, n, rmax, device)))
+    out = {"K3": exact_against_plain(device, args, reps),
+           "K4b": exact_against_plain(device, stacked, reps)}
+    check(out["K3"]["above_saturation"] > n // 8,
+          f"too few costs above K1/K2's saturation: {out['K3']}")
+
+    launches = reset_launches()
+    k6 = swar_kernel_proto.run(device, n, rmax, reps)
+    k6_launches = launches["swar_cost"]
+    check(k6["mismatches"] == 0, f"K6 tool: {k6}")
+    want = torch.clamp(kc.dp_rows_exact_ref(*args)[0], max=kc.SAT)
+    out["K6"] = {"max_abs_err": int((kc.swar_cost(*args) - want)
+                                    .abs().max()),
+                 "ms": k6["ms"], "plain_ms": timer(
+                     device, lambda: kc.swar_cost_ref(*args), 3),
+                 "launches": k6_launches, "exact_ms": k6["exact_ms"]}
+    check(out["K6"]["max_abs_err"] == 0, f"K6 vs plain: {out['K6']}")
+
+    genome, reads = make_world(*rescore_world)
+    dev = DeviceRescorer(make_bundle(reads), device=device)
+    kw = dict(log_match=float(np.log(MATCH)),
+              log_mismatch=float(np.log(MISMATCH)),
+              total_len=len(genome), min_prob_per_base=MPB,
+              min_prob_start=MPS)
+    cap = len(genome)
+    default = dev.rescore([genome], cap, **kw)
+    default_ms = timer(device, lambda: dev.rescore([genome], cap, **kw),
+                       reps // 2, host_clock=True)
+    os.environ["GAML_SWAR_BACKWARD"] = "0"
+    try:
+        launches = reset_launches()
+        k3 = dev.rescore([genome], cap, **kw)
+        out["K3"]["launches"] = launches["dp_rows_exact"]
+        check(launches["swar_cost_accept"] == 0 and
+              (device.type != "cuda" or (launches["dp_rows_exact"] > 0 and
+                                         launches["swar_cost"] > 0)),
+              f"the K3 route did not run K1 + dp_rows_exact: {launches}")
+        k3_ms = timer(device, lambda: dev.rescore([genome], cap, **kw),
+                      reps // 2, host_clock=True)
+    finally:
+        del os.environ["GAML_SWAR_BACKWARD"]
+    check(k3[:2] == default[:2] and np.isfinite(k3[0]),
+          f"K3 route (score, zero_reads, n) {k3} vs default {default}")
+    out["rescore"] = {"candidates": k3[2], "score": k3[0],
+                      "zero_reads": k3[1], "k3_route_ms": k3_ms,
+                      "default_ms": default_ms}
+    for k, v in out.items():
+        print(f"  {k}: " + json.dumps(v), flush=True)
+    return out
+
+
+# ------------------------------------------------------------------ phase 9
+def host_candidates(bundle, reads, genome):
+    """gen_candidates over one window, from the bundle's max-hash index
+    and a read cache with the seed positions precomputed (as
+    ReadSet.prepare_read_index builds them)."""
+    from gaml_tpu.align.aligner import _ReadCache, gen_candidates
+    from gaml_tpu.index.maxhash import K_INDEX_KMER, ReadIndexMaxHash
+    from gaml_tpu.native import read_index_build
+
+    _fp, _ok, kmers, rc, seed_pos = read_index_build(reads, K_INDEX_KMER)
+    index = ReadIndexMaxHash()
+    off = bundle.fp_off.tolist()
+    index.index = {fp: bundle.fp_rids[off[i]:off[i + 1]].tolist()
+                   for i, fp in enumerate(bundle.fp_sorted.tolist())}
+    index.read_len = reads.shape[1]
+    read_seqs = dict(enumerate(reads))
+    cache = _ReadCache(read_seqs, kmers, {i: i for i in range(len(reads))})
+    cache._rc_matrix, cache.seed_kmer_pos = rc, seed_pos
+    return gen_candidates(index, read_seqs, genome, cache)
+
+
+def close(a, b, rel):
+    return np.isfinite(a) and abs(a - b) <= rel * abs(b)
+
+
+def phase_models(device, d, world=(2_800_000, 300_000), reps=5):
+    """SingleEndModel on ``device`` over host candidates of phase 3's
+    world, against the model on the CPU and DeviceRescorer.rescore on the
+    same window (score rel 2e-6, zero_reads equal); PairedEndModel on the
+    frag library of the world in ``d`` over the start walks, against the
+    float64 host paired scorer (rel 1e-5, zero_reads equal)."""
+    import torch
+
+    from gaml_tpu.cli import starting_paths_from_config
+    from gaml_tpu.core.io import load_lastgraph
+    from gaml_tpu.optimize.settings import AssemblySettings
+    from gaml_tpu.scoring.paired import calc_score_for_paths_paired
+    from gaml_tpu.scoring.readset import ReadSet
+    from gaml_tpu_torch.models import PairedEndModel, SingleEndModel
+    from gaml_tpu_torch.ops.extend import stage_candidates
+    from gaml_tpu_torch.ops.rescore_device import DeviceRescorer
+
+    genome_len, n_reads = world
+    genome, reads = make_world(genome_len, n_reads)
+    bundle = make_bundle(reads)
+    t0 = time.perf_counter()
+    cands = host_candidates(bundle, reads, genome)
+    t_cands = time.perf_counter() - t0
+    lens = [READ_LEN] * n_reads
+    model = SingleEndModel(MATCH, MISMATCH, MPB, MPS, device=device)
+    launches = reset_launches()
+    score, zeros, _ = model.score_candidates(genome, cands, n_reads, lens,
+                                             genome_len)
+    model_launches = launches["dp_rows_exact"]
+    check(device.type != "cuda" or model_launches > 0,
+          f"the model did not launch dp_rows_exact: {launches}")
+    cpu = SingleEndModel(MATCH, MISMATCH, MPB, MPS).score_candidates(
+        genome, cands, n_reads, lens, genome_len)
+    resc = DeviceRescorer(bundle, device=device).rescore(
+        [genome], len(genome), log_match=float(np.log(MATCH)),
+        log_mismatch=float(np.log(MISMATCH)), total_len=genome_len,
+        min_prob_per_base=MPB, min_prob_start=MPS)
+    for name, (s_ref, z_ref) in (("cpu model", cpu[:2]),
+                                 ("rescore", resc[:2])):
+        check(zeros == z_ref and close(score, s_ref, 2e-6),
+              f"model on {device} ({score}, {zeros}) vs {name} "
+              f"({s_ref}, {z_ref})")
+    st = stage_candidates(
+        genome, [c.genome_pos for c, _ in cands],
+        [c.read_pos for c, _ in cands], [r for _, r in cands],
+        read_ids=[c.read_id for c, _ in cands], device=device)
+    lens_t = torch.full((n_reads,), READ_LEN, dtype=torch.int32,
+                        device=device)
+    fwd_ms = timer(device, lambda: float(model(st, lens_t, genome_len,
+                                               n_reads)[0]),
+                   reps, host_clock=True)
+    # the forward's stacked launch, alone, at this shape (K4a's entry)
+    views = [torch.cat([st[f"{k}_f"].t(), st[f"{k}_b"].t()], dim=-1)
+             .contiguous() for k in ("read", "gwin")]
+    views += [torch.cat([st[f"{k}_f"], st[f"{k}_b"]]) for k in
+              ("rlen", "glen")]
+    k4a = exact_against_plain(device, views, reps)
+    k4a["launches"] = model_launches
+    single = {"genome": genome_len, "reads": n_reads,
+              "candidates": len(cands), "host_candgen_s": t_cands,
+              "score": score, "zero_reads": zeros,
+              "rel_vs_cpu": abs(score - cpu[0]) / abs(cpu[0]),
+              "rel_vs_rescore": abs(score - resc[0]) / abs(resc[0]),
+              "forward_ms": fwd_ms, "launches": model_launches}
+    print("  single " + json.dumps(single), flush=True)
+
+    graph = load_lastgraph(os.path.join(d, "LastGraph"))
+    walks = starting_paths_from_config({}, graph,
+                                       AssemblySettings.from_config({}))
+    mates = []
+    for k in (1, 2):
+        rs = ReadSet(os.path.join(d, f"pm{k}"), os.path.join(d, f"f{k}.fq"),
+                     MATCH, MISMATCH)
+        rs.preprocess_reads()
+        rs.prepare_read_index()
+        mates.append(rs)
+    t0 = time.perf_counter()
+    h_score, h_zeros, tl = calc_score_for_paths_paired(graph, walks, *mates,
+                                                       180, 20)
+    host_s = time.perf_counter() - t0
+    pm = PairedEndModel(180, 20, match_prob=MATCH, mismatch_prob=MISMATCH,
+                        min_prob_per_base=MPB, min_prob_start=MPS,
+                        device=device)
+    n_pairs = mates[0].reads_num
+    t0 = time.perf_counter()
+    p_score, p_zeros, _ = pm.score_positions(
+        mates[0].positions, mates[1].positions, n_pairs,
+        mates[0].read_lens, mates[1].read_lens, tl)
+    paired_s = time.perf_counter() - t0
+    check(p_zeros == h_zeros and close(p_score, h_score, 1e-5),
+          f"paired model ({p_score}, {p_zeros}) vs host ({h_score}, "
+          f"{h_zeros})")
+    paired = {"walks": len(walks), "pairs": n_pairs, "total_len": tl,
+              "score": p_score, "zero_reads": p_zeros,
+              "rel_vs_host": abs(p_score - h_score) / abs(h_score),
+              "host_scorer_s": host_s, "model_s": paired_s,
+              "k_cap": max(len(p) for rs in mates for p in rs.positions)}
+    print("  paired " + json.dumps(paired), flush=True)
+    return {"single": single, "paired": paired, "K4a": k4a}
+
+
+# ----------------------------------------------------------------- phase 10
+def trim_fastq(src, dst, rng, share=0.2, lo=60, hi=99):
+    """Copy a FASTQ, cutting ``share`` of its reads at the 3' end to a
+    length uniform in [lo, hi] (quality trimming)."""
+    with open(src, "rb") as f:
+        lines = f.read().split(b"\n")
+    n = len(lines) // 4
+    cut = rng.random(n) < share
+    lens = rng.integers(lo, hi + 1, n)
+    for i in np.nonzero(cut)[0].tolist():
+        lines[4 * i + 1] = lines[4 * i + 1][:lens[i]]
+        lines[4 * i + 3] = lines[4 * i + 3][:lens[i]]
+    with open(dst, "wb") as f:
+        f.write(b"\n".join(lines))
+    return int(cut.sum())
+
+
+def phase_mixed_anneal(device, d, iterations=200, check_iterations=50,
+                       timeout=450):
+    """The phase-4 world with its frag library quality-trimmed: 20 % of
+    each mate file's reads cut to 60-99 bp (own generator, seed 29).  The
+    frag read sets get no native bundle, so their windows run through
+    batch_extend_multi and the exact kernel; the advice library keeps K1/
+    K2.  --device cuda against --device cpu (equal traces over the cpu
+    run), reported against gaml_tpu.cli --backend bfs."""
+    rng = np.random.default_rng(29)
+    trimmed = [trim_fastq(os.path.join(d, f"f{k}.fq"),
+                          os.path.join(d, f"t{k}.fq"), rng) for k in (1, 2)]
+    res, diff = anneal_against_cpu_and_bfs(
+        device, d, iterations, check_iterations, timeout,
+        ("swar_cost", "swar_cost_accept", "dp_rows_exact"), frag="t",
+        tag="mixed_")
+    res["trimmed_reads"] = trimmed
+    print("  " + json.dumps(res), flush=True)
+    if diff is not None:
+        print(f"  {device}: {diff[1]}\n  bfs:  {diff[2]}", flush=True)
+    return res
+
+
+def kernels_line(kern, anneal, fwd, pb, exact, models, mixed):
+    """{"kernels": [...]}: one entry per TPU kernel with the numbers of
+    the phases that measured it.  Launches come from the runs of the main
+    paths (counts reset just before each): K1/K2 phase 4's anneal, K3 the
+    K3-route rescore of phase 8, K4a/K4b the models of phase 9 plus phase
+    10's anneal (one kernel serves both), K5 phase 7, K6 its tool."""
+    k4 = mixed["launches"]["dp_rows_exact"] + models["K4a"]["launches"]
+    kern = {"K1": dict(kern["swar_cost"],
+                       launches=anneal["launches"]["swar_cost"]),
+            "K2": dict(kern["swar_cost_accept"],
+                       launches=anneal["launches"]["swar_cost_accept"]),
+            "K3": exact["K3"],
+            "K4a": dict(models["K4a"], launches=k4),
+            "K4b": dict(exact["K4b"], launches=k4),
+            "K6": exact["K6"]}
+    kern["K5"] = {
+        k: (fwd[64][k] if k != "max_abs_err" else
+            max(fwd[64][k], fwd[128][k]))
+        for k in ("max_abs_err", "ms", "plain_ms")}
+    kern["K5"].update(width=64, ms_w128=fwd[128]["ms"],
+                      plain_ms_w128=fwd[128]["plain_ms"],
+                      launches=pb["launches"])
+    return {"kernels": [
+        dict(name=name, tpu_kernel=tpu, route="cuda", source=source,
+             replaces=replaces, **kern[tpu])
+        for tpu, name, source, replaces in KERNELS]}
+
+
 def run_phase(name, fn, *args, **kw):
     t0 = time.perf_counter()
     res = fn(*args, **kw)
@@ -874,25 +1190,25 @@ def main():
     run_phase("2 rescore 400 kb", phase_rescore, device, 400_000, 100_000,
               launches=rescore_launches)
     run_phase("3 rescore 2.8 Mb", phase_rescore, device, 2_800_000, 300_000)
-    anneal = run_phase("4 anneal", phase_anneal, device)
-    fwd = run_phase("5 K5", phase_forward_kernel, device)
-    with tempfile.TemporaryDirectory(prefix="gaml_smoke_pb_") as d:
-        genome = write_pacbio_world(d)
-        run_phase("6 pacbio scoring", phase_pacbio_scoring, device, d)
-        pb = run_phase("7 pacbio anneal", phase_pacbio_anneal, device, d,
-                       genome)
+    with tempfile.TemporaryDirectory(prefix="gaml_smoke_") as d_aureus:
+        t0 = time.perf_counter()
+        world = write_anneal_world(d_aureus)
+        world += (time.perf_counter() - t0,)
+        anneal = run_phase("4 anneal", phase_anneal, device, d_aureus, world)
+        fwd = run_phase("5 K5", phase_forward_kernel, device)
+        with tempfile.TemporaryDirectory(prefix="gaml_smoke_pb_") as d:
+            genome = write_pacbio_world(d)
+            run_phase("6 pacbio scoring", phase_pacbio_scoring, device, d)
+            pb = run_phase("7 pacbio anneal", phase_pacbio_anneal, device,
+                           d, genome)
+        exact = run_phase("8 exact DP", phase_exact, device)
+        models = run_phase("9 device models", phase_models, device,
+                           d_aureus)
+        mixed = run_phase("10 mixed-length anneal", phase_mixed_anneal,
+                          device, d_aureus)
     check("jax" not in sys.modules, "jax was imported")
-    launches = dict(anneal["launches"], banded_forward=pb["launches"])
-    kern["banded_forward"] = {
-        k: (fwd[64][k] if k != "max_abs_err" else
-            max(fwd[64][k], fwd[128][k]))
-        for k in ("max_abs_err", "ms", "plain_ms")}
-    kern["banded_forward"].update(width=64, ms_w128=fwd[128]["ms"],
-                                  plain_ms_w128=fwd[128]["plain_ms"])
-    print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=source, replaces=replaces,
-             launches=launches[name], **kern[name])
-        for name, (source, replaces) in KERNELS.items()]}), flush=True)
+    print(json.dumps(kernels_line(kern, anneal, fwd, pb, exact, models,
+                                  mixed)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,11 +4,17 @@ TorchSubpathAligner overrides the device seams of
 gaml_tpu.align.aligner.SubpathAligner, so that no gaml_tpu.ops (JAX)
 import is reached: the device engines (ensure_device_rescorer,
 ensure_device_extender), the batch entry points and the per-window
-extension (_extend_all).  Candidate generation and extension run in
-gaml_tpu_torch.ops; the first-wins (position, read) dedup per window is
-the same numpy code as the JAX route's.  A batch whose candidate count
-exceeds the cap is redone on the device with the cap raised to the
-count (the JAX route hands it to the native aligner instead).
+extension (_extend_all).  The first-wins (position, read) dedup per
+window is the same numpy code as the JAX route's.
+
+- With a native bundle (uniform read lengths), candidate generation and
+  extension (K1/K2) run in gaml_tpu_torch.ops.  A batch whose candidate
+  count exceeds the cap is redone on the device with the cap raised to
+  the count (the JAX route hands it to the native aligner instead).
+- Without one (mixed read lengths, e.g. quality-trimmed libraries),
+  candidates come from the host index window by window, and the whole
+  batch is extended in one batch_extend_multi call (one exact launch of
+  both directions, K4), as in gaml_tpu/align/aligner.py:286-331.
 """
 from __future__ import annotations
 
@@ -18,9 +24,11 @@ import numpy as np
 import torch
 
 from gaml_tpu.align.aligner import (_EMPTY_COLUMNS_ALIGNER, AlignmentColumns,
-                                    SubpathAligner, spell_subpath)
+                                    SubpathAligner, gen_candidates,
+                                    spell_subpath)
 
-from ..ops.extend_device import DeviceExtender, extend_reads
+from ..ops.extend_device import (DeviceExtender, batch_extend_host,
+                                 batch_extend_multi)
 from ..ops.rescore_device import DeviceRescorer
 
 
@@ -66,21 +74,44 @@ class TorchSubpathAligner(SubpathAligner):
     def _extend_all(self, seq: np.ndarray, cands):
         if not cands:
             return []
-        ok, errs, begin = extend_reads(
-            seq, [c.genome_pos for c, _ in cands],
-            [c.read_pos for c, _ in cands], [r for _, r in cands],
-            self.device)
-        return [(bool(o), int(e), int(b)) for o, e, b in
-                zip(ok.tolist(), errs.tolist(), begin.tolist())]
+        return batch_extend_host(seq, cands, self.device)
 
     def align_subpaths_batch(self, graph, paths: List, defer: bool = False):
         bundle = getattr(self, "native_bundle", None)
         if bundle is not None:
             return self._align_subpaths_batch_native(graph, paths, bundle,
                                                      defer=defer)
-        # no native bundle (mixed read lengths, trivial index): per-window
-        # candidates on the host, extension on the device (_extend_all)
-        out = [self.align_subpath(graph, p) for p in paths]
+        # no native bundle (mixed read lengths, trivial index): candidates
+        # on the host per window, one device extension for the batch
+        rl = self.index.read_len
+        out: List[AlignmentColumns] = [_EMPTY_COLUMNS_ALIGNER] * len(paths)
+        seqs, offsets, keep = [], [], []
+        seq_idx, g0s, r0s, reads, rid, orient = [], [], [], [], [], []
+        for si, path in enumerate(paths):
+            seq, offset = spell_subpath(graph, path)
+            if len(seq) < rl or rl == 0:
+                continue
+            cands = gen_candidates(self.index, self.read_seqs, seq,
+                                   self._read_cache)
+            for c, read in cands:
+                seq_idx.append(len(seqs))
+                g0s.append(c.genome_pos)
+                r0s.append(c.read_pos)
+                reads.append(read)
+                rid.append(c.read_id)
+                orient.append(c.orientation)
+            keep.append(si)
+            seqs.append(seq)
+            offsets.append(offset)
+        if reads:
+            ok, errs, begin = batch_extend_multi(seqs, seq_idx, g0s, r0s,
+                                                 reads, self.device)
+            self.device_batches += 1
+            self.device_candidates += len(reads)
+            for si, cols in zip(keep, window_columns(
+                    ok, errs, begin, np.asarray(rid), np.asarray(orient),
+                    np.asarray(seq_idx), offsets)):
+                out[si] = cols
         return (lambda: out) if defer else out
 
     def _align_subpaths_batch_native(self, graph, paths, bundle,

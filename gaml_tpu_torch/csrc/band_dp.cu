@@ -1,10 +1,18 @@
-// Banded short-read extension DP for Hopper (sm_90a): kernels K1 and K2.
+// Banded short-read extension DP for Hopper (sm_90a): kernels K1 to K4.
 //
 // Replaces the TPU kernels of gaml_tpu/ops/extend_pallas.py:
 //   K1  swar_cost_pallas         (_swar_kernel_dyn, forward direction, cost)
 //   K2  swar_cost_accept_pallas  (_swar_kernel_acc_dyn, backward direction,
 //                                 cost plus preferred accept offset)
-// Both compute the exact recurrence of gaml_tpu.ops.extend._dp_rows (its
+//   K3  dp_rows_pallas_reg_dyn   (_dp_kernel_reg_dyn: exact cost and offset,
+//                                 register band, per-block row bound)
+//   K4a dp_rows_pallas           (_dp_kernel: exact cost and offset over all
+//                                 rmax rows, sublane band)
+//   K4b dp_rows_pallas_reg       (_dp_kernel_reg: K4a in a register band)
+// K3, K4a and K4b differ only in TPU layout and row bound, so they share
+// one entry point here, gaml_dp_rows_exact.  tools/swar_kernel_proto.py's
+// prototype (K6) computes K1's function; its port runs gaml_swar_cost.
+// All compute the exact recurrence of gaml_tpu.ops.extend._dp_rows (its
 // torch twin is gaml_tpu_torch.ops.extend.dp_rows): a min-plus DP over
 // read rows on the 7 diagonals d in [-3, 3], run downward from the row
 // bound.  Moves per row: match on the diagonal (the last genome char only
@@ -19,14 +27,17 @@
 // rows >= rlen are accept rows equal to the initial state, so skipping
 // them is exact, and the per-thread bound replaces the TPU's per-block
 // bound, its r0 sort and its tile permutation.  The band lives in
-// registers as seven exact int32 costs (and seven offsets for K2); a
+// registers as seven exact int32 costs (and seven offsets for K2 and the
+// exact entry point); a
 // rolling 7-char genome window needs one new byte per row.  The TPU
 // kernels packed the band into 4-bit SWAR fields saturating at 7; these
 // kernels keep exact costs and saturate only the output, so K1 returns
 // min(c_exact, 7) and K2 additionally returns the exact offset
-// everywhere (the contract asks for it where c_exact <= 6).  The epilogue
+// everywhere (the contract asks for it where c_exact <= 6).  The exact
+// entry point (K3/K4) stores c and a unsaturated: c is at most INF = 100,
+// since every move's cost is capped at INF as in dp_rows.  The epilogue
 // (ok, errs, begin, the g0 == 0 rule) is left to torch
-// (gaml_tpu_torch.ops.extend_device.extend_candidates).
+// (gaml_tpu_torch.ops.extend.extend_epilogue).
 //
 // What bounds it on an H100: integer ALU work and the dependency chain of
 // the row recurrence (about 60-120 integer ops per candidate-row, serial
@@ -46,7 +57,7 @@ constexpr int kInvalidA = 100;
 constexpr int kSat = 7;
 constexpr int kThreads = 128;
 
-template <bool kAccept>
+template <bool kAccept, bool kSaturate>
 __global__ void __launch_bounds__(kThreads)
 band_dp_kernel(const uint8_t* __restrict__ read_t,
                const uint8_t* __restrict__ gwin_t,
@@ -88,7 +99,7 @@ band_dp_kernel(const uint8_t* __restrict__ read_t,
       if (match[d]) {
         if (gpi[d] || last_row) v = c[d];
       } else {
-        if (gpi[d]) v = c[d] + 1;                          // substitution
+        if (gpi[d]) v = min(v, c[d] + 1);                  // substitution
         v = min(v, (d > 0 ? c[d - 1] : kInf) + 1);         // read-skip
       }
       crow[d] = v;
@@ -143,7 +154,7 @@ band_dp_kernel(const uint8_t* __restrict__ read_t,
       ch[0] = gwin_t[r * stride + i];
     }
   }
-  c_out[i] = min(c[3], kSat);
+  c_out[i] = kSaturate ? min(c[3], kSat) : c[3];
   if (kAccept) a_out[i] = a[3];
 }
 
@@ -157,8 +168,8 @@ int launch_blocks(int n) { return (n + kThreads - 1) / kThreads; }
 extern "C" int gaml_swar_cost(const void* read_t, const void* gwin_t,
                               const void* rlen, const void* glen, int n,
                               int rmax, void* c_out, void* stream) {
-  band_dp_kernel<false><<<launch_blocks(n), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  band_dp_kernel<false, true><<<launch_blocks(n), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(read_t), static_cast<const uint8_t*>(gwin_t),
       static_cast<const int32_t*>(rlen), static_cast<const int32_t*>(glen), n,
       rmax, static_cast<int32_t*>(c_out), nullptr);
@@ -170,8 +181,22 @@ extern "C" int gaml_swar_cost_accept(const void* read_t, const void* gwin_t,
                                      const void* rlen, const void* glen,
                                      int n, int rmax, void* c_out,
                                      void* a_out, void* stream) {
-  band_dp_kernel<true><<<launch_blocks(n), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  band_dp_kernel<true, true><<<launch_blocks(n), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(read_t), static_cast<const uint8_t*>(gwin_t),
+      static_cast<const int32_t*>(rlen), static_cast<const int32_t*>(glen), n,
+      rmax, static_cast<int32_t*>(c_out), static_cast<int32_t*>(a_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3/K4a/K4b: exact (unsaturated) cost plus accept offset of the start
+// state, for any n and rmax.
+extern "C" int gaml_dp_rows_exact(const void* read_t, const void* gwin_t,
+                                  const void* rlen, const void* glen, int n,
+                                  int rmax, void* c_out, void* a_out,
+                                  void* stream) {
+  band_dp_kernel<true, false><<<launch_blocks(n), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(read_t), static_cast<const uint8_t*>(gwin_t),
       static_cast<const int32_t*>(rlen), static_cast<const int32_t*>(glen), n,
       rmax, static_cast<int32_t*>(c_out), static_cast<int32_t*>(a_out));

@@ -1,0 +1,2 @@
+from .likelihood import (LikelihoodModel, PairedEndModel, SingleEndModel,
+                         from_jax)

@@ -1,18 +1,22 @@
-"""Kernels K1/K2 (csrc/band_dp.cu): wrappers, plain versions, launch counts.
+"""Kernels K1-K4 (csrc/band_dp.cu): wrappers, plain versions, launch counts.
 
 K1 ``swar_cost`` replaces gaml_tpu/ops/extend_pallas.py::swar_cost_pallas
 (forward direction: the d=0 cost saturated at 7).  K2
 ``swar_cost_accept`` replaces ::swar_cost_accept_pallas (backward
 direction: that cost plus the preferred accept offset, INVALID_A where
-none).  Inputs follow the JAX kernels' candidate-minor layout:
+none).  ``dp_rows_exact`` replaces K3 ::dp_rows_pallas_reg_dyn, K4a
+::dp_rows_pallas and K4b ::dp_rows_pallas_reg: the exact, unsaturated
+(cost, offset) of the start state.  ``extend_kernel_exact`` replaces
+::extend_kernel_pallas: both directions of a staged dict in one launch.
+Inputs follow the JAX kernels' candidate-minor layout:
 read_t [rmax, n] uint8 (codes 0-4, sentinel 6), gwin_t [rmax + 2*PAD, n]
 uint8 (codes 0-4, sentinel 8), rlen/glen [n] int32.  Unlike the TPU
 kernels there is no block row bound and no layout permutation: the
 kernels bound rows per candidate and take any n.
 
 Contract (from the JAX kernels): K1 c == min(c_exact, 7); K2 the same c
-and a == a_exact wherever c_exact <= 6.  The CUDA kernels return the
-exact a everywhere.
+and a == a_exact wherever c_exact <= 6; dp_rows_exact c == c_exact and
+a == a_exact everywhere.  The CUDA kernels return the exact a everywhere.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor
 they launch the kernel or raise.
@@ -23,28 +27,32 @@ import ctypes
 
 import torch
 
-from .extend import PAD, dp_rows
+from .extend import ERROR_LIMIT, PAD, dp_rows
 
 SAT = 7
 
 # launches of each kernel by its wrapper (plain-version calls not counted)
-LAUNCHES = {"swar_cost": 0, "swar_cost_accept": 0}
+LAUNCHES = {"swar_cost": 0, "swar_cost_accept": 0, "dp_rows_exact": 0}
 
 
-def _plain(read_t, gwin_t, rlen, glen):
+def dp_rows_exact_ref(read_t, gwin_t, rlen, glen):
+    """Plain torch version of K3/K4: dp_rows' exact (cost, accept offset)
+    of the start state d = 0."""
     rmax = read_t.shape[0]
     c, a = dp_rows(read_t.t(), rlen, gwin_t.t(), glen, rmax)
-    return torch.clamp(c[:, 3], max=SAT), a[:, 3]
+    return c[:, 3], a[:, 3]
 
 
 def swar_cost_ref(read_t, gwin_t, rlen, glen):
     """Plain torch version of K1: dp_rows' d=0 cost, saturated at 7."""
-    return _plain(read_t, gwin_t, rlen, glen)[0]
+    return torch.clamp(dp_rows_exact_ref(read_t, gwin_t, rlen, glen)[0],
+                       max=SAT)
 
 
 def swar_cost_accept_ref(read_t, gwin_t, rlen, glen):
     """Plain torch version of K2: (cost saturated at 7, accept offset)."""
-    return _plain(read_t, gwin_t, rlen, glen)
+    c, a = dp_rows_exact_ref(read_t, gwin_t, rlen, glen)
+    return torch.clamp(c, max=SAT), a
 
 
 def _check(read_t, gwin_t, rlen, glen):
@@ -110,3 +118,39 @@ def swar_cost_accept(read_t, gwin_t, rlen, glen):
     if n:
         _launch("swar_cost_accept", read_t, gwin_t, rlen, glen, [c, a])
     return c, a
+
+
+def dp_rows_exact(read_t, gwin_t, rlen, glen):
+    """K3/K4: exact (cost, accept offset) of the start state per
+    candidate, both int32 [n]; the cost is at most INF."""
+    rmax, n = _check(read_t, gwin_t, rlen, glen)
+    if read_t.device.type == "cpu":
+        return dp_rows_exact_ref(read_t, gwin_t, rlen, glen)
+    if read_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {read_t.device}")
+    c = torch.empty(n, dtype=torch.int32, device=read_t.device)
+    a = torch.empty(n, dtype=torch.int32, device=read_t.device)
+    if n:
+        _launch("dp_rows_exact", read_t, gwin_t, rlen, glen, [c, a])
+    return c, a
+
+
+def extend_kernel_exact(st):
+    """Both directions of a staged dict (ops.extend.stage_candidates or
+    the JAX package's; candidate-major read_*/gwin_* [nb, *] uint8,
+    lengths [nb]) stacked into one dp_rows_exact launch of 2*nb
+    candidates, on the device of st["read_f"].  Returns (ok, errs,
+    d_back) over the padded batch: ok = both costs <= ERROR_LIMIT, errs
+    their sum, d_back the backward accept offset."""
+    t = {k: torch.as_tensor(st[k]) for k in
+         ("read_f", "gwin_f", "rlen_f", "glen_f",
+          "read_b", "gwin_b", "rlen_b", "glen_b")}
+    nb = t["read_f"].shape[0]
+    c, a = dp_rows_exact(
+        torch.cat([t["read_f"].t(), t["read_b"].t()], dim=1),
+        torch.cat([t["gwin_f"].t(), t["gwin_b"].t()], dim=1),
+        torch.cat([t["rlen_f"], t["rlen_b"]]).to(torch.int32),
+        torch.cat([t["glen_f"], t["glen_b"]]).to(torch.int32))
+    cf, cb = c[:nb], c[nb:]
+    ok = (cf <= ERROR_LIMIT) & (cb <= ERROR_LIMIT)
+    return ok, cf + cb, a[nb:]

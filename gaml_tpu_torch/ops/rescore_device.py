@@ -9,7 +9,8 @@ Port of gaml_tpu/ops/rescore_device.py:
 
 The reference keeps the FIRST duplicate in candidate emission order.
 Candidates arrive in emission order, grouped by (window, read), so one
-stable sort on an int64 (group, begin) key puts each group's earliest
+stable sort on an int64 (group, begin) key (ops.score.dedup_alignments
+with the group in place of the read id) puts each group's earliest
 candidate first.  Probabilities and the reduction stay float32, as in JAX.
 """
 from __future__ import annotations
@@ -21,9 +22,7 @@ import torch
 
 from .candgen_device import Candidates, DeviceCandGen
 from .extend_device import DeviceExtender
-from .score import reduce_read_probs
-
-_KEY_PAD = torch.iinfo(torch.int64).max
+from .score import dedup_alignments, reduce_read_probs
 
 
 class DeviceRescorer:
@@ -66,12 +65,8 @@ class DeviceRescorer:
             new_grp[1:] = (c.seg[1:] != c.seg[:-1]) | \
                 (c.rid[1:] != c.rid[:-1])
             grp = torch.cumsum(new_grp.to(torch.int64), 0)
-            key = torch.where(ok, (grp << 32) | (begin.to(torch.int64)
-                                                 + (1 << 31)), _KEY_PAD)
-            key_s, perm = torch.sort(key, stable=True)
-            keep = key_s != _KEY_PAD
-            keep[1:] &= key_s[1:] != key_s[:-1]
-            idx = perm[keep]
+            order, keep = dedup_alignments(grp, begin, ok)
+            idx = order[keep]
             rid = c.rid[idx]
             e = errs[idx].to(torch.float32)
             rl = self.lens[rid].to(torch.float32)

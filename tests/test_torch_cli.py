@@ -35,18 +35,26 @@ def with_errors(rng, reads, rate):
     return out
 
 
-def write_world(tmp_path, iterations=25):
+def write_world(tmp_path, iterations=25, trimmed=False):
     """The test_config_cli end-to-end world with 2 % substitution errors;
     returns a function making a config whose outputs and caches live
-    under their own prefix."""
+    under their own prefix.  ``trimmed`` cuts 20 % of each mate file's
+    reads at the 3' end to 20-29 bp (a quality-trimmed library: mixed
+    read lengths, so no native bundle)."""
     rng = np.random.default_rng(0)
     node_seqs = [random_seq(rng, 600), random_seq(rng, 80),
                  random_seq(rng, 700)]
     (tmp_path / "LastGraph").write_text(
         lastgraph_text(node_seqs, [(1, 2), (2, 3)]))
     m1, m2 = make_pairs(rng, "".join(node_seqs), 25, 30, 250, 25)
-    write_fastq(str(tmp_path / "m1.fq"), with_errors(rng, m1, 0.02))
-    write_fastq(str(tmp_path / "m2.fq"), with_errors(rng, m2, 0.02))
+    m1, m2 = with_errors(rng, m1, 0.02), with_errors(rng, m2, 0.02)
+    if trimmed:
+        from test_torch_mixed import trim_reads
+
+        m1, m2 = (trim_reads(m, seed, lo=20, hi=29)
+                  for m, seed in ((m1, 1), (m2, 2)))
+    write_fastq(str(tmp_path / "m1.fq"), m1)
+    write_fastq(str(tmp_path / "m2.fq"), m2)
 
     def config(name):
         cfg = tmp_path / f"{name}.cfg"
@@ -80,12 +88,14 @@ def itnum_lines(text):
     return out
 
 
-def test_trace_and_outputs_match_jax_device_backend(tmp_path, monkeypatch,
-                                                    capsys):
+def port_against_jax(tmp_path, monkeypatch, capsys, trimmed):
+    """The port's CLI (--device cpu) against gaml_tpu.cli --backend
+    device: identical itnum traces and .walks/.fasta files.  Returns the
+    port's device-work summary."""
     from gaml_tpu.cli import main as jax_main
     from gaml_tpu_torch.cli import main as port_main
 
-    config = write_world(tmp_path)
+    config = write_world(tmp_path, trimmed=trimmed)
     monkeypatch.setenv("GAML_DEV_MIN_BASES", "0")
     monkeypatch.setenv("GAML_DEV_EAGER", "1")
     monkeypatch.chdir(tmp_path)
@@ -96,10 +106,34 @@ def test_trace_and_outputs_match_jax_device_backend(tmp_path, monkeypatch,
     trace = itnum_lines(port_out)
     assert len(trace) >= 25
     assert trace == itnum_lines(jax_out)
-    assert '"candidates"' in port_out.splitlines()[-1]
+    summary = json.loads(port_out.splitlines()[-1].split(
+        "device work: ", 1)[1])
+    assert summary["batches"] > 0 and summary["candidates"] > 0
     for ext in ("walks", "fasta"):
         assert (tmp_path / f"port.{ext}").read_bytes() == \
             (tmp_path / f"jax.{ext}").read_bytes()
+    return summary
+
+
+def test_trace_and_outputs_match_jax_device_backend(tmp_path, monkeypatch,
+                                                    capsys):
+    port_against_jax(tmp_path, monkeypatch, capsys, trimmed=False)
+
+
+def test_mixed_length_trace_matches_jax_device_backend(tmp_path,
+                                                       monkeypatch, capsys):
+    """A quality-trimmed library (no native bundle): every window batch
+    is one batch_extend_multi call (the exact kernel's route), counted in
+    the summary line."""
+    from gaml_tpu_torch.align import aligner
+
+    calls = []
+    real = aligner.batch_extend_multi
+    monkeypatch.setattr(aligner, "batch_extend_multi",
+                        lambda *a: calls.append(len(a[4])) or real(*a))
+    summary = port_against_jax(tmp_path, monkeypatch, capsys, trimmed=True)
+    assert summary["batches"] == len(calls) > 0
+    assert summary["candidates"] == sum(calls)
 
 
 def test_port_process_never_imports_jax(tmp_path):
@@ -108,6 +142,8 @@ def test_port_process_never_imports_jax(tmp_path):
         "import sys\n"
         "import gaml_tpu_torch\n"
         "import gaml_tpu_torch.ops.build, gaml_tpu_torch.ops.extend_cuda\n"
+        "import gaml_tpu_torch.models, gaml_tpu_torch.ops.pair\n"
+        "import gaml_tpu_torch.tools.swar_kernel_proto\n"
         "from gaml_tpu_torch.cli import main\n"
         f"rc = main([{config!r}, '--device', 'cpu'])\n"
         "assert rc == 0, rc\n"

@@ -12,7 +12,8 @@ from gaml_tpu.ops.extend import (batch_extend_arrays, extend_staged,
 from gaml_tpu.ops.extend_device import DeviceExtender as JaxExtender
 from gaml_tpu_torch.align.aligner import window_columns
 from gaml_tpu_torch.native import load_native
-from gaml_tpu_torch.ops.extend_device import DeviceExtender, extend_reads
+from gaml_tpu_torch.ops.extend_device import (DeviceExtender,
+                                              batch_extend_arrays)
 from gaml_tpu_torch.ops.rescore_device import DeviceRescorer
 
 from fixtures import make_linear_graph, random_seq, sample_reads
@@ -67,6 +68,34 @@ def test_run_matches_jax_extender_and_host_staging(tmp_path):
         np.testing.assert_array_equal(begin[ok], begin_r[ok])
 
 
+def test_exact_backward_route_matches_default(tmp_path, monkeypatch):
+    """GAML_SWAR_BACKWARD=0 runs the backward direction through
+    dp_rows_exact (the K3 route): ok equal, errs and begin equal where
+    ok, to the default K2 route."""
+    rng = np.random.default_rng(7)
+    gr, node_seqs = make_linear_graph(rng, [400, 80, 500])
+    reads = sample_reads(rng, "".join(node_seqs), 80, 30, err_rate=0.04)
+    bundle = make_readset(tmp_path, reads, "k3").aligner.native_bundle
+    seqs = [np.ascontiguousarray(spell_subpath(gr, w)[0], dtype=np.uint8)
+            for w in [(0,), (0, 2, 4), (2, 4)]]
+    *args, _rid = native_batch(bundle, seqs)
+    ext = DeviceExtender(bundle.codes_fwd, bundle.codes_rc, "cpu")
+    ok, errs, begin = ext.run(*args)
+    import gaml_tpu_torch.ops.extend_device as ed
+
+    calls = []
+    real = ed.dp_rows_exact
+    monkeypatch.setattr(ed, "dp_rows_exact",
+                        lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setenv("GAML_SWAR_BACKWARD", "0")
+    ok3, errs3, begin3 = ext.run(*args)
+    assert calls == [1]
+    assert ok.sum() > 0 and (~ok).sum() > 0
+    np.testing.assert_array_equal(ok3, ok)
+    np.testing.assert_array_equal(errs3[ok], errs[ok])
+    np.testing.assert_array_equal(begin3[ok], begin[ok])
+
+
 def test_windows_at_buffer_end_match_native():
     """Short windows at the end of the batch buffer (the JAX staging
     clamps there, ROADMAP C1).  Reads carry substitutions only, where the
@@ -88,8 +117,9 @@ def test_windows_at_buffer_end_match_native():
 
 
 def test_extend_reads_matches_jax_host_route():
-    """The per-window form (the aligner's _extend_all) on reads of mixed
-    lengths with indels, against gaml_tpu's host-staged extension."""
+    """The per-window form (batch_extend_arrays, under the aligner's
+    _extend_all) on reads of mixed lengths with indels, against gaml_tpu's
+    host-staged extension."""
     rng = np.random.default_rng(5)
     seq = dna.encode_seq(random_seq(rng, 400))
     g0s, r0s, reads = [], [], []
@@ -103,7 +133,7 @@ def test_extend_reads_matches_jax_host_route():
             reads.append(read)
     g0s, r0s = np.array(g0s, np.int32), np.array(r0s, np.int32)
     assert len({len(r) for r in reads}) > 1
-    ok, errs, begin = extend_reads(seq, g0s, r0s, reads, "cpu")
+    ok, errs, begin = batch_extend_arrays(seq, g0s, r0s, reads, "cpu")
     ok_j, errs_j, begin_j = batch_extend_arrays(seq, g0s, r0s, reads)
     assert ok.sum() > 0
     np.testing.assert_array_equal(ok, ok_j)

@@ -1,20 +1,27 @@
-"""Kernels of the port: K1/K2 (gaml_tpu_torch.ops.extend_cuda), the
-wrappers' CPU route and input checks, and on a CUDA card K1, K2 and K5
+"""Kernels of the port: K1/K2 and the exact K3/K4 kernel
+(gaml_tpu_torch.ops.extend_cuda), the wrappers' CPU route and input
+checks, the K6 tool (gaml_tpu_torch.tools.swar_kernel_proto), and on a
+CUDA card K1, K2, dp_rows_exact, the K6 tool and K5
 (gaml_tpu_torch.ops.forward_cuda) against their plain versions.  Imports
 no jax, so the card tests run on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from gaml_tpu_torch.ops import forward_cuda
 from gaml_tpu_torch.ops.extend import PAD, SENT_GEN, SENT_READ
-from gaml_tpu_torch.ops.extend_cuda import (swar_cost, swar_cost_accept,
+from gaml_tpu_torch.ops.extend_cuda import (dp_rows_exact,
+                                            dp_rows_exact_ref, swar_cost,
+                                            swar_cost_accept,
                                             swar_cost_accept_ref,
                                             swar_cost_ref)
 from gaml_tpu_torch.ops.forward_device import ForwardDeviceEngine, guide_steps
+from gaml_tpu_torch.tools import swar_kernel_proto
 
 
 def random_band_inputs(seed, n, rmax):
@@ -63,6 +70,45 @@ def test_kernel_matches_plain_version_on_card(kernel):
     assert torch.equal(c, c_ref)
     m = c_ref <= 6
     assert torch.equal(a[m], a_ref[m])
+
+
+@pytest.mark.cuda
+def test_exact_kernel_matches_plain_version_on_card():
+    """dp_rows_exact (K3/K4a/K4b) on the card against its plain version
+    at the main path's shape: c and a equal everywhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    args = tuple(torch.from_numpy(x).cuda() for x in
+                 random_band_inputs(5, 131072, 96))
+    c, a = dp_rows_exact(*args)
+    c_ref, a_ref = dp_rows_exact_ref(*args)
+    assert int((c_ref > 7).sum()) > 1000
+    assert torch.equal(c, c_ref)
+    assert torch.equal(a, a_ref)
+
+
+def test_swar_prototype_tool_on_cpu(capsys):
+    """The K6 tool's inputs are the prototype's (and phase 1's), and on
+    CPU tensors it runs the plain versions to the same check."""
+    read, gwin, rlen, glen = swar_kernel_proto.prototype_inputs(
+        2048, 32, "cpu")
+    for got, want in zip((read, gwin, rlen, glen),
+                         random_band_inputs(0, 2048, 32)):
+        assert np.array_equal(got.numpy(), want)
+    assert swar_kernel_proto.main(["--device", "cpu", "--n", "2048",
+                                   "--rmax", "32", "--reps", "1"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["mismatches"] == 0 and res["n"] == 2048
+
+
+@pytest.mark.cuda
+def test_swar_prototype_tool_on_card():
+    """K6's counterpart: K1 against min(dp_rows_exact, 7) on the card at
+    the prototype's inputs (n = 131072, rmax = 96)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    res = swar_kernel_proto.run("cuda", reps=3)
+    assert res["mismatches"] == 0 and res["ms"] > 0
 
 
 def resident_jobs(seed, n_reads=10, c=64, seq_len=700):
