@@ -5,34 +5,43 @@
 
 Builds the CUDA kernels from gaml_tpu_torch/csrc, then drives the port's
 short-read rescore path and its long-read scoring path phase by phase,
-each phase printing its results and seconds:
+each phase printing its results and seconds.  Every comparison is against
+the port's own host routes (the native C++ aligner, ``--backend bfs``,
+the native PacBio kernel) or the kernels' plain torch versions; nothing of
+the JAX package is imported.
 
 0. the card (nvidia-smi name and power limit), torch and CUDA versions,
-   the kernel build;
-1. kernels K1/K2 against their plain torch versions on the card at the
-   main path's shape (131072 candidates, rmax 96), with timings;
+   the kernel build (ptxas registers and spills, the DPX instructions in
+   the SASS of the band kernels);
+1. the fused extension kernel against its plain version on a resident
+   world of 131072 candidates (reads of 100 bp), timed beside the staged
+   route it replaces (stage_views + K1 + K2) on the same candidates; the
+   staged K1/K2 entries against their plain versions at the band shape
+   (131072 candidates, rmax 96);
 2. candidate generation and the full rescore at bench.py's world (400 kb
    genome, 100k reads of 100 bp) against the native C++ query and the
    port's own CPU engine (which runs the plain versions), with warm
-   timings;
+   timings, the stage split (candgen, extension, dedup + reduction) and
+   the fused kernel against its plain version on the rescore's own
+   candidates;
 3. the same at S. aureus scale (2.8 Mb, 300k reads of 100 bp);
 4. an anneal through ``python -m gaml_tpu_torch.cli --device cuda`` on the
    2.8 Mb paired world of examples/aureus_like_run.py, held against a
-   ``--device cpu`` run of the same config and reported against
-   ``python -m gaml_tpu.cli --backend bfs``;
+   ``--device cpu`` run of the same config and reported against the
+   port's ``--backend bfs``;
 5. kernel K5 (the PacBio banded forward DP) against its plain torch
    version on the card at widths 64 and 128, at an S. aureus-sized batch
    (2.8 Mb walk buffer, 2048 jobs, reads up to 5 kb);
 6. long-read scoring at the repo's pinned scale (the examples/pacbio_run.py
    world: 1 Mb, 500 reads of 3 kb, 10 % errors, seed 5): the port's read
-   set against the native host route, and the native-vs-card crossover
-   in DP cells;
+   set on the card against the same read set's native host route, and the
+   native-vs-card crossover in DP cells;
 7. a PacBio anneal through the port's CLI (``--device cuda``, in this
-   process, under the profiler) against ``python -m gaml_tpu.cli`` on the
-   native host route, held to the assembly-level bound of
+   process, under the profiler) against the port's CLI on the native host
+   route, held to the assembly-level bound of
    tests/test_pacbio.py::test_f32_route_anneal_quality_bound;
 8. the exact band DP (dp_rows_exact, the counterpart of K3/K4a/K4b)
-   against its plain version at phase 1's inputs, one launch and the
+   against its plain version at phase 1's band inputs, one launch and the
    stacked two-direction launch; the K6 tool
    (gaml_tpu_torch.tools.swar_kernel_proto); and the phase-2 rescore on
    the K3 route (GAML_SWAR_BACKWARD=0) against the default route;
@@ -42,14 +51,18 @@ each phase printing its results and seconds:
    frag library against the host paired scorer over the start walks;
 10. a mixed-length anneal: phase 4's world with 20 % of each frag mate
    file's reads quality-trimmed (no native bundle, so its windows run
-   through the exact kernel while the advice library stays on K1/K2),
-   ``--device cuda`` against ``--device cpu``, reported against
-   ``gaml_tpu.cli --backend bfs``.
+   through the exact kernel while the advice library stays on the fused
+   kernel), ``--device cuda`` against ``--device cpu``, reported against
+   ``--backend bfs``.
 
-Any failed check raises and exits non-zero.  The last two lines are a
-JSON object describing each kernel and {"ok": true, "device": {...}}.
-Without a CUDA device, or without the repository beside it, the script
-exits non-zero before any phase.
+Kernel times are the median over warm calls of CUDA events around one
+call (the launch included).  Each kernel's bound is the larger of its
+16-bit lane operations (or, for K5, special-function results) over the
+card's peak and the bytes it must move over 3.35 TB/s, from this run's
+inputs.  Any failed check raises and exits non-zero.  The last two lines are a JSON
+object describing each kernel and {"ok": true, "device": {...}}.  Without
+a CUDA device, or without the repository beside it, the script exits
+non-zero before any phase.
 """
 import json
 import os
@@ -67,8 +80,8 @@ MPB, MPS = -0.7, -10.0
 READ_LEN = 100
 BAND_DP = "gaml_tpu_torch/csrc/band_dp.cu"
 KERNELS = (  # (TPU kernel, entry name, source, the pallas_call it replaces)
-    ("K1", "swar_cost", BAND_DP, "gaml_tpu/ops/extend_pallas.py:467"),
-    ("K2", "swar_cost_accept", BAND_DP, "gaml_tpu/ops/extend_pallas.py:600"),
+    ("K1", "extend_fused", BAND_DP, "gaml_tpu/ops/extend_pallas.py:467"),
+    ("K2", "extend_fused", BAND_DP, "gaml_tpu/ops/extend_pallas.py:600"),
     ("K3", "dp_rows_exact:K3", BAND_DP, "gaml_tpu/ops/extend_pallas.py:710"),
     ("K4a", "dp_rows_exact:K4a", BAND_DP,
      "gaml_tpu/ops/extend_pallas.py:287"),
@@ -79,6 +92,19 @@ KERNELS = (  # (TPU kernel, entry name, source, the pallas_call it replaces)
     ("K6", "swar_cost:K6", BAND_DP, "tools/swar_kernel_proto.py:127"),
 )
 PB_MATCH, PB_MISMATCH = 0.85, 0.0375  # config mismatch_prob=0.0375
+# peaks of one NVIDIA H100 SXM for the bounds: HBM bytes/s; 16-bit lane
+# operations/s of the packed integer band (132 SMs x 64 int32 lanes x 2
+# lanes of 16 bits x 1.98 GHz); special-function (exp, log) results/s of
+# K5 (132 SMs x 16 x 1.98 GHz)
+HBM_BPS = 3.35e12
+LANE_OPS = 132 * 64 * 2 * 1.98e9
+MUFU_OPS = 132 * 16 * 1.98e9
+# 16-bit lane operations per band cell (one candidate-row-diagonal): the
+# cost (match test, the diagonal select, substitution and read-skip each
+# an add and a min, three genome-skip add/min sweeps) and the accept
+# offset's tie-break (three comparisons, three take masks, two selects,
+# four sweeps)
+COST_OPS, ACCEPT_OPS = 12, 12
 
 
 def sync(device):
@@ -120,10 +146,49 @@ def timer(device, fn, reps, host_clock=False):
 
 
 # ------------------------------------------------------------------ phase 0
+# the band kernels of band_dp.cu by a part of their mangled names (the
+# template arguments), as the entry points that launch them
+BAND_KERNELS = {"band_dp_kernelILb0ELb1E": "swar_cost",
+                "band_dp_kernelILb1ELb1E": "swar_cost_accept",
+                "band_dp_kernelILb1ELb0E": "dp_rows_exact",
+                "extend_fused_kernel": "extend_fused"}
+
+
+def sass_counts(so):
+    """{mangled kernel name: {"sass": instructions, "dpx": DPX
+    instructions}} from cuobjdump -sass of the built library.  DPX counts
+    VIADDMNMX, VIMNMX3, VIBMNMX and every packed 16x2 form: the
+    instructions that exist in hardware on sm_90 and that an emulated
+    __viaddmin_s16x2 would not produce."""
+    from gaml_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Za-z0-9_.]*)", line)
+        if name and m:
+            op = m.group(1)
+            d = out.setdefault(name, {"sass": 0, "dpx": 0})
+            d["sass"] += 1
+            d["dpx"] += op.startswith(("VIADDMNMX", "VIMNMX3", "VIBMNMX")) \
+                or "16x2" in op
+    return out
+
+
 def phase_card():
+    """The card, the versions, the build; per band kernel its registers
+    and spills (-Xptxas -v) and its DPX instructions in the SASS.  Fails
+    if a band kernel has no DPX instruction or spills."""
     import torch
 
-    from gaml_tpu_torch.native import load_native
+    from gaml_tpu_torch.native import get_lib
     from gaml_tpu_torch.ops import build
 
     smi = subprocess.run(
@@ -135,14 +200,23 @@ def phase_card():
           f"cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count "
           f"{torch.cuda.device_count()}", flush=True)
-    check(load_native() is not None, "the native C++ library did not build")
+    check(get_lib() is not None, "the native C++ library did not build")
     build.load()
     print(f"kernel build {build.build_info['seconds']:.2f} s -> "
           f"{os.path.relpath(build.build_info['path'], ROOT)}", flush=True)
-    for line in build.build_info["log"].splitlines():
-        if any(k in line for k in ("entry function", "registers", "spill")):
-            print("  ptxas: " + line.split(":", 1)[-1].strip(), flush=True)
-    return smi
+    sass = sass_counts(build.build_info["path"])
+    usage = {}
+    for frag, entry in BAND_KERNELS.items():
+        names = [k for k in sass if frag in k]
+        check(len(names) == 1, f"{entry}: kernels {names} in the SASS")
+        reg = ptxas_usage(build.build_info["log"], frag)
+        usage[entry] = dict(reg[0] if reg else {}, **sass[names[0]])
+        check(usage[entry]["dpx"] > 0 and
+              usage[entry].get("spill_stores", 0) == 0,
+              f"{entry}: no DPX instruction in its SASS, or spills: "
+              f"{usage[entry]}")
+        print(f"  {entry}: " + json.dumps(usage[entry]), flush=True)
+    return usage
 
 
 # ------------------------------------------------------------------ phase 1
@@ -165,12 +239,149 @@ def band_inputs(seed, n, rmax, device):
                  for x in (read, gwin, rlen, glen))
 
 
-def phase_kernels(device, n=131072, rmax=96, reps=20):
-    """Each kernel against its plain version on the same inputs.  The
-    outputs are integers, so the tolerance is exact equality: K1's cost
-    everywhere, K2's cost everywhere and its offset wherever the exact
-    cost is <= 6 (the contract of the TPU kernels)."""
+def band_bound(rows_cost, rows_accept, nbytes):
+    """(bound ms, what bounds it) of a band DP that runs ``rows_cost``
+    candidate-rows for the cost alone and ``rows_accept`` for the cost
+    and the accept offset, and must move ``nbytes``."""
+    ops = 7 * (COST_OPS * rows_cost + (COST_OPS + ACCEPT_OPS) * rows_accept)
+    t_ops, t_bytes = ops / LANE_OPS * 1e3, nbytes / HBM_BPS * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "lane_ops": ops, "bytes": nbytes}
+
+
+def staged_bound(args, accept):
+    """The bound of a staged entry (K1, K2, the exact DP) on band inputs
+    read_t [rmax, n], gwin_t, rlen, glen: each candidate's rows below its
+    read length, with the read byte and the new genome byte of each row
+    (7 more genome bytes to start a band) and its outputs."""
+    import torch
+
+    read, _gwin, rlen, _glen = args
+    n = rlen.shape[0]
+    rows = rlen.to(torch.int64).clamp(0, read.shape[0])
+    nrow, live = int(rows.sum()), int((rows > 0).sum())
+    nbytes = 2 * nrow + 7 * live + 8 * n + (8 if accept else 4) * n
+    return band_bound(0 if accept else nrow, nrow if accept else 0, nbytes)
+
+
+def fused_bound(args, rmax):
+    """The bound of the fused extension on its inputs (codes, buf, base,
+    glen, g0, r0, row): the backward rows (cost and offset), the forward
+    rows (cost), the read rows the candidates name, the window buffer,
+    five int32 and three outputs (9 bytes) per candidate."""
+    import torch
+
+    from gaml_tpu_torch.ops.extend import K
+
+    codes, buf, _base, _glen, g0, r0, row = args
+    L = codes.shape[1]
+    rows_b = torch.where(g0 > 0, r0.clamp(max=rmax), 0)
+    rows_f = (L - r0 - K).clamp(0, rmax)
+    n = g0.shape[0]
+    nbytes = torch.unique(row).numel() * L + buf.numel() + 29 * n
+    return band_bound(int(rows_f.sum()), int(rows_b.sum()), nbytes)
+
+
+def resident_world(device, n=None, genome_len=400_000, n_reads=100_000):
+    """Phase 2's world made resident as the rescore holds it: both
+    orientations' read codes (DeviceExtender), the genome as the window
+    buffer, and the device candgen's candidates over it.  With ``n``,
+    random candidates (any row, any seed offset, anywhere in the genome)
+    fill the batch up to n.  Returns the extend_fused arguments (int32
+    per-candidate tensors), rmax and the candgen's count."""
+    import torch
+
+    from gaml_tpu_torch.ops.candgen_device import DeviceCandGen
+    from gaml_tpu_torch.ops.extend import K
+    from gaml_tpu_torch.ops.extend_device import DeviceExtender
+
+    genome, reads = make_world(genome_len, n_reads)
+    bundle = make_bundle(reads)
+    gen = DeviceCandGen(bundle, device)
+    ext = DeviceExtender(bundle.codes_fwd, bundle.codes_rc, device)
+    c = gen.query([genome])
+    g0, r0 = c.g0, c.r0
+    row = gen.row_of[c.rid] + c.orient * ext.n_rows
+    if n is not None:
+        rng = np.random.default_rng(3)
+        m = max(n - c.n_total, 0)
+        fill = [torch.as_tensor(x, device=device) for x in (
+            rng.integers(0, genome_len - K + 1, m),
+            rng.integers(0, ext.L - K + 1, m),
+            rng.integers(0, 2 * ext.n_rows, m))]
+        g0, r0, row = (torch.cat([x, y])[:n] for x, y in
+                       zip((g0, r0, row), fill))
+    m = g0.shape[0]
+    i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
+    args = (ext.codes, c.codes, i32(torch.zeros(m, device=device)),
+            i32(torch.full((m,), genome_len, device=device)), i32(g0),
+            i32(r0), i32(row))
+    return args, ext.rmax, c.n_total
+
+
+def fused_against_plain(device, args, rmax, reps):
+    """The fused extension against its plain version: ok equal
+    everywhere, errs and begin equal wherever ok (integers: the tolerance
+    is exact); its times and bound."""
     from gaml_tpu_torch.ops import extend_cuda as kc
+
+    want = kc.extend_fused_ref(*args, rmax)
+    ok = want[0]
+    got = kc.extend_fused(*args, rmax)
+    sync(device)
+    check(bool((got[0] == ok).all()), "fused: ok differs from its plain "
+          "version")
+    err = max(int((g[ok] - w[ok]).abs().max()) if ok.any() else 0
+              for g, w in zip(got[1:], want[1:]))
+    check(err == 0, f"fused: errs/begin differ from the plain version by "
+          f"{err} where ok")
+    res = {"n": int(ok.numel()), "ok": int(ok.sum()), "max_abs_err": err,
+           "equal_everywhere": all(bool((g == w).all())
+                                   for g, w in zip(got, want))}
+    res["ms"] = timer(device, lambda: kc.extend_fused(*args, rmax), reps)
+    res["plain_ms"] = timer(device, lambda: kc.extend_fused_ref(*args, rmax),
+                            3)
+    res.update(fused_bound(args, rmax))
+    return res
+
+
+def phase_kernels(device, n=131072, rmax=96, reps=20):
+    """The fused extension against its plain version on a resident world
+    of n candidates, timed beside the staged route it replaces on the
+    same candidates (stage_views, K1, K2, the epilogue, and each of those
+    alone).  Then each staged entry against its plain version on band
+    inputs.  The outputs are integers, so the tolerance is exact
+    equality: K1's cost everywhere, K2's cost everywhere and its offset
+    wherever the exact cost is <= 6 (the contract of the TPU kernels)."""
+    import torch
+
+    from gaml_tpu_torch.ops import extend_cuda as kc
+    from gaml_tpu_torch.ops.extend import stage_views
+    from gaml_tpu_torch.ops.extend_device import extend_candidates
+
+    fargs, frmax, n_cands = resident_world(device, n)
+    fused = fused_against_plain(device, fargs, frmax, reps)
+    fused["candgen_candidates"] = n_cands
+    codes, buf, *meta = fargs
+    i64 = [x.to(torch.int64) for x in meta]
+    read_len = torch.full_like(i64[0], codes.shape[1])
+    staged = extend_candidates(codes, read_len, buf, *i64, frmax)
+    got = kc.extend_fused(*fargs, frmax)
+    ok = got[0]
+    check(bool((staged[0] == ok).all()) and all(
+        bool((s[ok] == g[ok]).all()) for s, g in zip(staged[1:], got[1:])),
+        "the staged route and the fused kernel differ where ok")
+    fwd, bwd = stage_views(codes, read_len, buf, *i64, frmax)
+    fused["staged_route_ms"] = timer(device, lambda: extend_candidates(
+        codes, read_len, buf, *i64, frmax), reps)
+    fused["stage_views_ms"] = timer(device, lambda: stage_views(
+        codes, read_len, buf, *i64, frmax), reps)
+    fused["staged_k1_ms"] = timer(device, lambda: kc.swar_cost(*fwd), reps)
+    fused["staged_k2_ms"] = timer(device, lambda: kc.swar_cost_accept(*bwd),
+                                  reps)
+    print(f"  fused n={n} L={codes.shape[1]}: " + json.dumps(fused),
+          flush=True)
 
     args = band_inputs(0, n, rmax, device)
     c1, c1_ref = kc.swar_cost(*args), kc.swar_cost_ref(*args)
@@ -183,16 +394,16 @@ def phase_kernels(device, n=131072, rmax=96, reps=20):
     check(int(m.sum()) > n // 8, "too few unsaturated K2 candidates")
     check(err1 == 0, f"K1 differs from its plain version by {err1}")
     check(err2 == 0, f"K2 differs from its plain version by {err2}")
-    out = {}
+    out = {"extend_fused": fused}
     for name, err in (("swar_cost", err1), ("swar_cost_accept", err2)):
         out[name] = {
             "max_abs_err": err,
             "ms": timer(device, lambda: getattr(kc, name)(*args), reps),
             "plain_ms": timer(device, lambda: getattr(kc, name + "_ref")(
-                *args), 3)}
-    print(f"  n={n} rmax={rmax}: " + ", ".join(
-        f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} ms)"
-        for k, v in out.items()), flush=True)
+                *args), 3),
+            **staged_bound(args, name == "swar_cost_accept")}
+        print(f"  {name} n={n} rmax={rmax}: " + json.dumps(out[name]),
+              flush=True)
     return out
 
 
@@ -201,7 +412,7 @@ def make_world(genome_len, n_reads, read_len=READ_LEN, err_rate=0.01,
                seed=7):
     """bench.py's world: a random genome and reads sampled from it with
     substitution errors, half of them reverse-complemented."""
-    from gaml_tpu.core import dna
+    from gaml_tpu_torch.core import dna
 
     rng = np.random.default_rng(seed)
     genome = rng.integers(0, 4, genome_len).astype(np.uint8)
@@ -217,9 +428,9 @@ def make_world(genome_len, n_reads, read_len=READ_LEN, err_rate=0.01,
 def make_bundle(reads):
     """The native aligner bundle (index, read codes, seed positions) of a
     uniform-length read matrix; read id = row."""
-    from gaml_tpu.core.dna import _COMP_LUT
-    from gaml_tpu.index.maxhash import K_INDEX_KMER
-    from gaml_tpu.native import NativeAlignBundle, read_index_build
+    from gaml_tpu_torch.core.dna import _COMP_LUT
+    from gaml_tpu_torch.index.maxhash import K_INDEX_KMER
+    from gaml_tpu_torch.native import NativeAlignBundle, read_index_build
 
     fp, ok_m, _k, _rc, seed_pos = read_index_build(reads, K_INDEX_KMER)
     okb = ok_m.astype(bool)
@@ -237,7 +448,7 @@ def make_bundle(reads):
 
 def host_total_prob(bundle, genome, n_reads):
     """GetTotalProb in float64 over the native BFS window alignments."""
-    from gaml_tpu.native import align_window
+    from gaml_tpu_torch.native import align_window
 
     _pos, ed, rid, _or = align_window(bundle, genome, 0)
     probs = np.zeros(n_reads)
@@ -251,10 +462,11 @@ def host_total_prob(bundle, genome, n_reads):
 def phase_rescore(device, genome_len, n_reads, reps=10, launches=None):
     """Candgen and rescore on ``device`` against the native query and the
     port's CPU engine; score tolerance 2e-6 relative (float32 sums taken
-    in another order)."""
+    in another order).  Then the stage split and the fused kernel against
+    its plain version on the rescore's own candidates."""
     import torch
 
-    from gaml_tpu.native import query_windows_batch
+    from gaml_tpu_torch.native import query_windows_batch
     from gaml_tpu_torch.ops import extend_cuda
     from gaml_tpu_torch.ops.candgen_device import DeviceCandGen
     from gaml_tpu_torch.ops.rescore_device import DeviceRescorer
@@ -277,13 +489,34 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None):
         for k in extend_cuda.LAUNCHES:
             extend_cuda.LAUNCHES[k] = 0
     score, zeros, n_tot = dev.rescore([genome], cap, **args)
-    ms = timer(device, lambda: dev.rescore([genome], cap, **args), reps,
-               host_clock=True)
     if launches is not None:
         launches.update(extend_cuda.LAUNCHES)
-        check(device.type != "cuda" or all(
-            launches[k] > 0 for k in ("swar_cost", "swar_cost_accept")),
-            f"a kernel was not launched by the rescore: {launches}")
+        check(device.type != "cuda" or (
+            launches["extend_fused"] == 1 and launches["swar_cost"] ==
+            launches["swar_cost_accept"] == 0),
+            f"the rescore did not make one fused launch: {launches}")
+    ms = timer(device, lambda: dev.rescore([genome], cap, **args), reps,
+               host_clock=True)
+
+    # the stage split: candgen (ending in its count's synchronisation),
+    # the extension (CUDA events) and dedup + reduction (ending in the
+    # score's); then the fused kernel on these candidates
+    def candgen():
+        out = dev.gen.query([genome], cap)
+        sync(device)
+        return out
+
+    c = candgen()
+    ext = dev._extend(c)
+    split = {"candgen_ms": timer(device, candgen, reps, host_clock=True),
+             "extend_ms": timer(device, lambda: dev._extend(c), reps),
+             "dedup_reduce_ms": timer(device, lambda: dev.score(
+                 c, ext, **args), reps, host_clock=True)}
+    i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
+    fargs = (dev.ext.codes, c.codes, i32(c.seg_base[c.seg]),
+             i32(c.seg_len[c.seg]), i32(c.g0), i32(c.r0),
+             i32(dev.gen.row_of[c.rid] + c.orient * dev.ext.n_rows))
+    fused = fused_against_plain(device, fargs, dev.ext.rmax, reps)
     check(n_tot == ref[2] == cap, f"n_total {n_tot} vs cpu {ref[2]} "
           f"vs native {cap}")
     check(zeros == ref[1], f"zero_reads {zeros} vs cpu {ref[1]}")
@@ -296,10 +529,11 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None):
            "ms": ms, "reads_per_s": n_reads / (ms / 1e3),
            "bfs_score": h_score, "bfs_zero_reads": h_zeros,
            "rel_vs_bfs": abs(score - h_score) / abs(h_score),
-           "world_s": t_world}
+           "world_s": t_world, **split}
     if device.type == "cuda":
         res["peak_mem_mb"] = torch.cuda.max_memory_allocated() / 2**20
     print("  " + json.dumps(res), flush=True)
+    print("  fused on these candidates: " + json.dumps(fused), flush=True)
     return res
 
 
@@ -309,7 +543,7 @@ def write_anneal_world(d, genome_mb=2.8, n_frag=150_000, n_adv=30_000):
     long nodes 1200-6000 bp alternating with 60-300 bp ones in a chain,
     90 bp side branches, a frag library 180+-20 and an advice library
     3700+-350 of 100 bp innie pairs with 0.5 % substitutions."""
-    from gaml_tpu.core import dna
+    from gaml_tpu_torch.core import dna
 
     rng = np.random.default_rng(13)
     genome_len = int(genome_mb * 1_000_000)
@@ -417,8 +651,8 @@ def first_difference(a, b):
 def anneal_against_cpu_and_bfs(device, d, iterations, check_iterations,
                                timeout, launched, frag="f", tag=""):
     """The port's CLI on ``device`` against --device cpu (must agree over
-    the cpu run's iterations) and against gaml_tpu.cli --backend bfs
-    (reported), on the world in ``d``; outputs and caches are named
+    the cpu run's iterations) and against the port's --backend bfs, the
+    native host route (reported), on the world in ``d``; outputs and caches are named
     <tag>dev, <tag>bfs, <tag>cpu.  Every kernel named in ``launched``
     must have been launched by the ``device`` run."""
     dev, bfs, cpu = (tag + x for x in ("dev", "bfs", "cpu"))
@@ -426,8 +660,8 @@ def anneal_against_cpu_and_bfs(device, d, iterations, check_iterations,
         "gaml_tpu_torch.cli", write_config(d, dev, iterations, frag),
         ["--device", str(device)], timeout)
     bfs_out, bfs_wall = run_cli(
-        "gaml_tpu.cli", write_config(d, bfs, iterations, frag),
-        ["--backend", "bfs"], timeout)
+        "gaml_tpu_torch.cli", write_config(d, bfs, iterations, frag),
+        ["--backend", "bfs", "--device", "cpu"], timeout)
     cpu_out, cpu_wall = run_cli(
         "gaml_tpu_torch.cli", write_config(d, cpu, check_iterations, frag),
         ["--device", "cpu"], timeout)
@@ -472,8 +706,7 @@ def phase_anneal(device, d, world, iterations=1000, check_iterations=200,
     """The anneal on the aureus world written to ``d`` (``world``: its
     genome length, node count and seconds to write)."""
     res, diff = anneal_against_cpu_and_bfs(
-        device, d, iterations, check_iterations, timeout,
-        ("swar_cost", "swar_cost_accept"))
+        device, d, iterations, check_iterations, timeout, ("extend_fused",))
     res = dict(zip(("genome", "nodes", "world_s"), world), **res)
     print("  " + json.dumps(res), flush=True)
     if diff is not None:
@@ -531,6 +764,21 @@ def forward_inputs(seed, device, n_jobs=2048, rmax=5120,
             t(gstart, np.int32), t(glen, np.int32), t(rlen, np.int32))
 
 
+def forward_bound(args, width):
+    """The bound of K5 on its inputs: 4 special-function results (two
+    log-add-exps) per band cell over MUFU_OPS, or the read and step bytes
+    of each job's rows, the walk buffer once, seven int32 in and one
+    float32 out per job over HBM_BPS."""
+    reads, _row, seq, _steps, _c0, _gs, _gl, rlen = args
+    rows = int(rlen.sum())
+    t_ops = 4 * rows * width / MUFU_OPS * 1e3
+    nbytes = 2 * rows + seq.numel() + 32 * rlen.shape[0]
+    t_bytes = nbytes / HBM_BPS * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "mufu_ops": 4 * rows * width, "bytes": nbytes}
+
+
 def phase_forward_kernel(device, reps=10, **shape):
     """K5 against its plain version at both band widths.  Both are
     float32 with different exp/log1p implementations and a different
@@ -564,7 +812,8 @@ def phase_forward_kernel(device, reps=10, **shape):
             "ms": ms, "plain_ms": plain_ms,
             "cells_per_s": cells_per_lane * width / (ms / 1e3),
             "ptxas": ptxas_usage(build.build_info["log"],
-                                 f"banded_forward_kernelILi{width}E")}
+                                 f"banded_forward_kernelILi{width}E"),
+            **forward_bound(args, width)}
         print(f"  W={width} jobs={len(args[7])} rmax={args[3].shape[1]} "
               f"cells={cells_per_lane * width}: " + json.dumps(out[width]),
               flush=True)
@@ -578,7 +827,7 @@ def write_pacbio_world(d, genome_kb=1000, n_reads=500, read_len=3000):
     and long reads with 10 % errors (4 % substitutions, 3 % insertions,
     3 % deletions), half of them reverse-complemented.  Returns the truth
     genome's codes."""
-    from gaml_tpu.core import dna
+    from gaml_tpu_torch.core import dna
 
     rng = np.random.default_rng(5)
     segments = []
@@ -624,15 +873,17 @@ def write_pacbio_world(d, genome_kb=1000, n_reads=500, read_len=3000):
     return genome
 
 
-def pacbio_readsets(d, graph):
-    """A native-route PacbioReadSet and a copy adopted into the port
-    (same reads and anchors, separate alignment caches)."""
-    from gaml_tpu.scoring.pacbio import PacbioReadSet
+def pacbio_readsets(d, graph, device):
+    """Two PacbioReadSets of the world in ``d`` (same reads and anchors,
+    separate alignment caches): one for the native route, one whose
+    device batches run on ``device``."""
+    from gaml_tpu_torch.scoring.pacbio import PacbioReadSet
 
     sets = []
     for name in ("nat", "dev"):
         rs = PacbioReadSet(os.path.join(d, f"pb_{name}"),
-                           os.path.join(d, "pb.fq"), PB_MATCH, PB_MISMATCH)
+                           os.path.join(d, "pb.fq"), PB_MATCH, PB_MISMATCH,
+                           device=device)
         rs.preprocess_reads()
         sets.append(rs)
     nat, dev = sets
@@ -671,16 +922,14 @@ def phase_pacbio_scoring(device, d, reps=3):
     sizes over that precompute's jobs, timing each route, to find the
     crossover in DP cells (the smallest rung from which the card wins
     every rung)."""
-    from gaml_tpu.core.io import load_lastgraph
-    from gaml_tpu_torch.scoring.pacbio import adopt_pacbio_readset
+    from gaml_tpu_torch.core.io import load_lastgraph
 
     t0 = time.perf_counter()
     graph = load_lastgraph(os.path.join(d, "LastGraph"))
-    nat, dev = pacbio_readsets(d, graph)
+    nat, dev = pacbio_readsets(d, graph, device)
     t_setup = time.perf_counter() - t0
     walks = [[i] for i in range(0, graph.num_nodes, 2)
              if graph.node_len(i) > 500]
-    adopt_pacbio_readset(dev, device)
     batches, dp_s = [], {}
 
     def recorded(rs, tag):
@@ -790,7 +1039,7 @@ def device_busy_ms(prof):
 
 def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
     """The port's CLI on ``device`` (in this process, under the profiler)
-    against gaml_tpu.cli on the native host route, both from the same
+    against the port's CLI on the native host route, both from the same
     world and config seed: best score within 0.05, k-mer recall within
     0.005, junk no higher than native + 0.001, NG50 ratio in
     [0.95, 1.06] (tests/test_pacbio.py::test_f32_route_anneal_quality_
@@ -802,7 +1051,7 @@ def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
 
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from asm_quality import assembly_quality
-    from gaml_tpu.core import dna
+    from gaml_tpu_torch.core import dna
     from gaml_tpu_torch import cli
     from gaml_tpu_torch.ops import forward_cuda
 
@@ -811,12 +1060,12 @@ def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "gaml_tpu.cli",
-         write_pacbio_config(d, "nat", iterations)],
+        [sys.executable, "-m", "gaml_tpu_torch.cli",
+         write_pacbio_config(d, "nat", iterations), "--device", "cpu"],
         cwd=d, env=env, capture_output=True, text=True, timeout=timeout)
     nat_wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"gaml_tpu.cli exited {proc.returncode}:\n"
-          f"{proc.stderr[-4000:]}")
+    check(proc.returncode == 0, f"the native route exited "
+          f"{proc.returncode}:\n{proc.stderr[-4000:]}")
     nat_tr = trace(proc.stdout)
 
     cfg = write_pacbio_config(d, "dev", iterations)
@@ -901,7 +1150,8 @@ def exact_against_plain(device, args, reps):
             "above_saturation": int((c_ref > 7).sum()),
             "ms": timer(device, lambda: kc.dp_rows_exact(*args), reps),
             "plain_ms": timer(device, lambda: kc.dp_rows_exact_ref(*args),
-                              3)}
+                              3),
+            **staged_bound(args, True)}
 
 
 def phase_exact(device, n=131072, rmax=96, rescore_world=(400_000, 100_000),
@@ -934,7 +1184,8 @@ def phase_exact(device, n=131072, rmax=96, rescore_world=(400_000, 100_000),
                                     .abs().max()),
                  "ms": k6["ms"], "plain_ms": timer(
                      device, lambda: kc.swar_cost_ref(*args), 3),
-                 "launches": k6_launches, "exact_ms": k6["exact_ms"]}
+                 "launches": k6_launches, "exact_ms": k6["exact_ms"],
+                 **staged_bound(args, False)}
     check(out["K6"]["max_abs_err"] == 0, f"K6 vs plain: {out['K6']}")
 
     genome, reads = make_world(*rescore_world)
@@ -952,9 +1203,9 @@ def phase_exact(device, n=131072, rmax=96, rescore_world=(400_000, 100_000),
         launches = reset_launches()
         k3 = dev.rescore([genome], cap, **kw)
         out["K3"]["launches"] = launches["dp_rows_exact"]
-        check(launches["swar_cost_accept"] == 0 and
-              (device.type != "cuda" or (launches["dp_rows_exact"] > 0 and
-                                         launches["swar_cost"] > 0)),
+        check(launches["swar_cost_accept"] == launches["extend_fused"] == 0
+              and (device.type != "cuda" or (launches["dp_rows_exact"] > 0
+                                             and launches["swar_cost"] > 0)),
               f"the K3 route did not run K1 + dp_rows_exact: {launches}")
         k3_ms = timer(device, lambda: dev.rescore([genome], cap, **kw),
                       reps // 2, host_clock=True)
@@ -975,9 +1226,9 @@ def host_candidates(bundle, reads, genome):
     """gen_candidates over one window, from the bundle's max-hash index
     and a read cache with the seed positions precomputed (as
     ReadSet.prepare_read_index builds them)."""
-    from gaml_tpu.align.aligner import _ReadCache, gen_candidates
-    from gaml_tpu.index.maxhash import K_INDEX_KMER, ReadIndexMaxHash
-    from gaml_tpu.native import read_index_build
+    from gaml_tpu_torch.align.aligner import _ReadCache, gen_candidates
+    from gaml_tpu_torch.index.maxhash import K_INDEX_KMER, ReadIndexMaxHash
+    from gaml_tpu_torch.native import read_index_build
 
     _fp, _ok, kmers, rc, seed_pos = read_index_build(reads, K_INDEX_KMER)
     index = ReadIndexMaxHash()
@@ -1003,11 +1254,11 @@ def phase_models(device, d, world=(2_800_000, 300_000), reps=5):
     float64 host paired scorer (rel 1e-5, zero_reads equal)."""
     import torch
 
-    from gaml_tpu.cli import starting_paths_from_config
-    from gaml_tpu.core.io import load_lastgraph
-    from gaml_tpu.optimize.settings import AssemblySettings
-    from gaml_tpu.scoring.paired import calc_score_for_paths_paired
-    from gaml_tpu.scoring.readset import ReadSet
+    from gaml_tpu_torch.cli import starting_paths_from_config
+    from gaml_tpu_torch.core.io import load_lastgraph
+    from gaml_tpu_torch.optimize.settings import AssemblySettings
+    from gaml_tpu_torch.scoring.paired import calc_score_for_paths_paired
+    from gaml_tpu_torch.scoring.readset import ReadSet
     from gaml_tpu_torch.models import PairedEndModel, SingleEndModel
     from gaml_tpu_torch.ops.extend import stage_candidates
     from gaml_tpu_torch.ops.rescore_device import DeviceRescorer
@@ -1026,7 +1277,8 @@ def phase_models(device, d, world=(2_800_000, 300_000), reps=5):
     model_launches = launches["dp_rows_exact"]
     check(device.type != "cuda" or model_launches > 0,
           f"the model did not launch dp_rows_exact: {launches}")
-    cpu = SingleEndModel(MATCH, MISMATCH, MPB, MPS).score_candidates(
+    cpu = SingleEndModel(MATCH, MISMATCH, MPB, MPS,
+                         device="cpu").score_candidates(
         genome, cands, n_reads, lens, genome_len)
     resc = DeviceRescorer(bundle, device=device).rescore(
         [genome], len(genome), log_match=float(np.log(MATCH)),
@@ -1118,15 +1370,15 @@ def phase_mixed_anneal(device, d, iterations=200, check_iterations=50,
     """The phase-4 world with its frag library quality-trimmed: 20 % of
     each mate file's reads cut to 60-99 bp (own generator, seed 29).  The
     frag read sets get no native bundle, so their windows run through
-    batch_extend_multi and the exact kernel; the advice library keeps K1/
-    K2.  --device cuda against --device cpu (equal traces over the cpu
-    run), reported against gaml_tpu.cli --backend bfs."""
+    batch_extend_multi and the exact kernel; the advice library keeps the
+    fused kernel.  --device cuda against --device cpu (equal traces over
+    the cpu run), reported against --backend bfs."""
     rng = np.random.default_rng(29)
     trimmed = [trim_fastq(os.path.join(d, f"f{k}.fq"),
                           os.path.join(d, f"t{k}.fq"), rng) for k in (1, 2)]
     res, diff = anneal_against_cpu_and_bfs(
         device, d, iterations, check_iterations, timeout,
-        ("swar_cost", "swar_cost_accept", "dp_rows_exact"), frag="t",
+        ("extend_fused", "dp_rows_exact"), frag="t",
         tag="mixed_")
     res["trimmed_reads"] = trimmed
     print("  " + json.dumps(res), flush=True)
@@ -1135,31 +1387,51 @@ def phase_mixed_anneal(device, d, iterations=200, check_iterations=50,
     return res
 
 
-def kernels_line(kern, anneal, fwd, pb, exact, models, mixed):
+def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed):
     """{"kernels": [...]}: one entry per TPU kernel with the numbers of
     the phases that measured it.  Launches come from the runs of the main
-    paths (counts reset just before each): K1/K2 phase 4's anneal, K3 the
-    K3-route rescore of phase 8, K4a/K4b the models of phase 9 plus phase
-    10's anneal (one kernel serves both), K5 phase 7, K6 its tool."""
+    paths (counts reset just before each): K1/K2 (both served by the
+    fused extension) phase 4's anneal, K3 the K3-route rescore of phase
+    8, K4a/K4b the models of phase 9 plus phase 10's anneal (one kernel
+    serves both), K5 phase 7, K6 its tool.  The K1/K2 entries carry the
+    fused kernel's phase-1 numbers and, beside them, the staged route it
+    replaced on the same candidates.  No PyTorch call computes a banded
+    min-plus or log-space forward DP, so library_ms is null throughout.
+    ``card`` gives each band kernel's registers, spills and DPX
+    instruction count (phase 0)."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    fused = kern["extend_fused"]
+    k1k2 = dict({k: fused[k] for k in keys},
+                staged_route_ms=fused["staged_route_ms"],
+                stage_views_ms=fused["stage_views_ms"],
+                launches=anneal["launches"]["extend_fused"])
     k4 = mixed["launches"]["dp_rows_exact"] + models["K4a"]["launches"]
-    kern = {"K1": dict(kern["swar_cost"],
-                       launches=anneal["launches"]["swar_cost"]),
-            "K2": dict(kern["swar_cost_accept"],
-                       launches=anneal["launches"]["swar_cost_accept"]),
+    kern = {"K1": dict(k1k2, staged_entry_ms=fused["staged_k1_ms"],
+                       staged_entry_launches=anneal["launches"]["swar_cost"]),
+            "K2": dict(k1k2, staged_entry_ms=fused["staged_k2_ms"],
+                       staged_entry_launches=anneal["launches"][
+                           "swar_cost_accept"]),
             "K3": exact["K3"],
             "K4a": dict(models["K4a"], launches=k4),
             "K4b": dict(exact["K4b"], launches=k4),
             "K6": exact["K6"]}
     kern["K5"] = {
         k: (fwd[64][k] if k != "max_abs_err" else
-            max(fwd[64][k], fwd[128][k]))
-        for k in ("max_abs_err", "ms", "plain_ms")}
+            max(fwd[64][k], fwd[128][k])) for k in keys}
+    for tpu, entry in (("K1", "extend_fused"), ("K2", "extend_fused"),
+                       ("K3", "dp_rows_exact"), ("K4a", "dp_rows_exact"),
+                       ("K4b", "dp_rows_exact"), ("K6", "swar_cost")):
+        kern[tpu] = dict(kern[tpu], compiled=card[entry])
     kern["K5"].update(width=64, ms_w128=fwd[128]["ms"],
                       plain_ms_w128=fwd[128]["plain_ms"],
+                      bound_ms_w128=fwd[128]["bound_ms"],
                       launches=pb["launches"])
     return {"kernels": [
-        dict(name=name, tpu_kernel=tpu, route="cuda", source=source,
-             replaces=replaces, **kern[tpu])
+        dict({k: kern[tpu][k] for k in keys}, name=name, tpu_kernel=tpu,
+             route="cuda", source=source, replaces=replaces,
+             launches=kern[tpu]["launches"], library_ms=None,
+             **{k: v for k, v in kern[tpu].items()
+                if k not in keys and k != "launches"})
         for tpu, name, source, replaces in KERNELS]}
 
 
@@ -1184,7 +1456,7 @@ def main():
         return 2
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    run_phase("0 card", phase_card)
+    card = run_phase("0 card", phase_card)
     kern = run_phase("1 kernels", phase_kernels, device)
     rescore_launches = {}
     run_phase("2 rescore 400 kb", phase_rescore, device, 400_000, 100_000,
@@ -1206,8 +1478,11 @@ def main():
                            d_aureus)
         mixed = run_phase("10 mixed-length anneal", phase_mixed_anneal,
                           device, d_aureus)
-    check("jax" not in sys.modules, "jax was imported")
-    print(json.dumps(kernels_line(kern, anneal, fwd, pb, exact, models,
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "gaml_tpu"))
+    check(not foreign, f"modules of jax or the JAX package were imported: "
+          f"{foreign}")
+    print(json.dumps(kernels_line(card, kern, anneal, fwd, pb, exact, models,
                                   mixed)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

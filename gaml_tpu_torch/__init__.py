@@ -1,13 +1,15 @@
-"""gaml_tpu_torch: the PyTorch/CUDA port of gaml_tpu's device seams.
+"""gaml_tpu_torch: the PyTorch/CUDA port of gaml_tpu.
 
-The host layers (graph, index, native C++ aligner, scorers, moves, the
-annealer) are gaml_tpu's own and are imported from there.  This package
-replaces the device paths: the short-read rescore (candidate generation,
-staging, the banded extension DP, first-wins dedup, the GetTotalProb
+The port stands on its own: its host layers (graph, index, the native C++
+aligner in ``csrc/gaml_native.cc``, scorers, moves, the annealer, config
+and CLI) are its own copies of the JAX package's, and its device paths
+are torch: the short-read rescore (candidate generation, the fused
+two-direction extension kernel, first-wins dedup, the GetTotalProb
 reduction), the device likelihood models and the aligner's batch path for
 reads of mixed lengths, and the PacBio banded forward DP.  Every Pallas
 kernel of gaml_tpu has a hand-written CUDA counterpart in ``csrc/``.  It
-imports torch and never jax; every engine takes an explicit ``device``.
+imports torch, never jax, and nothing of gaml_tpu; its entry points run
+on the card (``device="cuda"``) unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

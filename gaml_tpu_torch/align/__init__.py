@@ -1,1 +1,1 @@
-"""Aligner with the port's device backend."""
+from .aligner import Alignment, SubpathAligner

@@ -1,2 +1,2 @@
 from .likelihood import (LikelihoodModel, PairedEndModel, SingleEndModel,
-                         from_jax)
+                         from_params)

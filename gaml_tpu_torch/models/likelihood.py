@@ -32,7 +32,7 @@ class LikelihoodModel(nn.Module):
 
     def __init__(self, match_prob: float = 0.96, mismatch_prob: float = 0.01,
                  min_prob_per_base: float = -0.7,
-                 min_prob_start: float = -10.0, device="cpu"):
+                 min_prob_start: float = -10.0, device="cuda"):
         super().__init__()
         self.match_prob = match_prob
         self.mismatch_prob = mismatch_prob
@@ -118,17 +118,23 @@ class PairedEndModel(LikelihoodModel):
         return float(score), int(zeros), probs.cpu().numpy()
 
 
-def from_jax(model, device="cpu") -> LikelihoodModel:
-    """The port's counterpart of a gaml_tpu.models instance: the same
-    match/mismatch probabilities, floors and (paired) insert mean/std."""
-    from gaml_tpu import models as jax_models  # numpy only, no jax
+_FLOATS = ("match_prob", "mismatch_prob", "min_prob_per_base",
+           "min_prob_start")
 
-    kw = dict(match_prob=model.match_prob,
-              mismatch_prob=model.mismatch_prob,
-              min_prob_per_base=model.min_prob_per_base,
-              min_prob_start=model.min_prob_start, device=device)
-    if isinstance(model, jax_models.PairedEndModel):
-        return PairedEndModel(model.insert_mean, model.insert_std, **kw)
-    if isinstance(model, jax_models.SingleEndModel):
-        return SingleEndModel(**kw)
-    return LikelihoodModel(**kw)
+
+def from_params(kind: str, params: dict, device="cuda") -> LikelihoodModel:
+    """A model from plain numbers, such as the configuration a JAX
+    package model carries: ``kind`` is "single", "paired" or "base";
+    ``params`` holds match_prob, mismatch_prob, min_prob_per_base and
+    min_prob_start, and for "paired" also insert_mean and insert_std."""
+    kw = {k: float(params[k]) for k in _FLOATS}
+    if kind == "paired":
+        return PairedEndModel(float(params["insert_mean"]),
+                              float(params["insert_std"]), device=device,
+                              **kw)
+    if kind == "single":
+        return SingleEndModel(device=device, **kw)
+    if kind == "base":
+        return LikelihoodModel(device=device, **kw)
+    raise ValueError(f"unknown model kind {kind!r}: want single, paired "
+                     "or base")

@@ -107,6 +107,9 @@ def load():
         lib.gaml_swar_cost_accept.restype = i
         lib.gaml_dp_rows_exact.argtypes = [p, p, p, p, i, i, p, p, p]
         lib.gaml_dp_rows_exact.restype = i
+        lib.gaml_extend_fused.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p,
+                                          p, p]
+        lib.gaml_extend_fused.restype = i
         lib.gaml_banded_forward.argtypes = [p, i, i, p, p, i, p, i, p, p, p,
                                             p, i, i, ctypes.c_float,
                                             ctypes.c_float, p, p]

@@ -26,8 +26,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from gaml_tpu.index.maxhash import HASH_XOR, K_INDEX_KMER
-from gaml_tpu.ops.candgen_device import DeviceCandGen as _JaxCandGen
+from ..index.maxhash import HASH_XOR, K_INDEX_KMER
 
 K = K_INDEX_KMER
 _POS_MASK = (1 << 32) - 1
@@ -55,6 +54,23 @@ class Candidates(NamedTuple):
         return self.rid is None
 
 
+def pack_windows(seqs: List[np.ndarray]):
+    """A window batch as one 2-bit packed buffer, for the upload: (packed2
+    uint8 [ceil(g_total / 4)], fixpos int64 positions of the non-ACGT
+    codes, seg_base and seg_len int64 [n_seg], g_total)."""
+    seg_len = np.array([len(s) for s in seqs], dtype=np.int64)
+    g_total = int(seg_len.sum())
+    buf = np.zeros(4 * -(-g_total // 4), dtype=np.uint8)
+    if g_total:
+        buf[:g_total] = np.concatenate(seqs)
+    fixpos = np.flatnonzero(buf >= 4)
+    c = np.where(buf < 4, buf, 0).astype(np.uint8)
+    packed2 = c[0::4] | (c[1::4] << 2) | (c[2::4] << 4) | (c[3::4] << 6)
+    seg_base = np.zeros(len(seqs), dtype=np.int64)
+    np.cumsum(seg_len[:-1], out=seg_base[1:])
+    return packed2, fixpos, seg_base, seg_len, g_total
+
+
 def _shift_left(a: torch.Tensor, sh: int, fill: int) -> torch.Tensor:
     return torch.cat([a[sh:], a.new_full((sh,), fill)])
 
@@ -64,7 +80,7 @@ class DeviceCandGen:
     index (sorted fingerprints, CSR offsets, read ids, seed positions,
     rid -> row map), built from a NativeAlignBundle's arrays."""
 
-    def __init__(self, bundle, device="cpu"):
+    def __init__(self, bundle, device="cuda"):
         dev = self.device = torch.device(device)
         self.read_len = int(bundle.read_len)
         fp = np.asarray(bundle.fp_sorted).astype(np.int64)
@@ -81,19 +97,15 @@ class DeviceCandGen:
     def upload(self, seqs: List[np.ndarray]):
         """Window batch -> (codes uint8 [g_total], seg_base, seg_len int64
         [n_seg]) on the device.  Ships the 2-bit packed buffer of
-        gaml_tpu's pack_windows and restores the non-ACGT codes."""
+        pack_windows and restores the non-ACGT codes on the device."""
         dev = self.device
-        packed2, fixpos, seg_base, seg_len, g_total, _s = \
-            _JaxCandGen.pack_windows(seqs)
-        nseg = len(seqs)
+        packed2, fixpos, seg_base, seg_len, g_total = pack_windows(seqs)
         p2 = torch.as_tensor(packed2, device=dev).to(torch.int64)
         shifts = torch.arange(0, 8, 2, device=dev)
         codes = ((p2.unsqueeze(1) >> shifts) & 3).reshape(-1)[:g_total]
-        fix = fixpos[fixpos < g_total].astype(np.int64)
-        codes[torch.as_tensor(fix, device=dev)] = 4
-        return (codes.to(torch.uint8),
-                torch.as_tensor(seg_base[:nseg].astype(np.int64), device=dev),
-                torch.as_tensor(seg_len[:nseg].astype(np.int64), device=dev))
+        codes[torch.as_tensor(fixpos, device=dev)] = 4
+        return (codes.to(torch.uint8), torch.as_tensor(seg_base, device=dev),
+                torch.as_tensor(seg_len, device=dev))
 
     def query(self, seqs: List[np.ndarray], cap: Optional[int] = None
               ) -> Candidates:

@@ -173,7 +173,7 @@ def stage_views(codes, read_len, buf, base, glen, g0, r0, row, rmax: int):
 
 def stage_candidates(seq, g0s, r0s, reads, rmax: int = None,
                      nb: int = None, read_ids=None, seq_idx=None,
-                     device="cpu"):
+                     device="cuda"):
     """The JAX package's staged dict (gaml_tpu.ops.extend.
     stage_candidates) as torch tensors on ``device``, built by
     stage_views.

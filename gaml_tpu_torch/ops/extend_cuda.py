@@ -1,4 +1,5 @@
-"""Kernels K1-K4 (csrc/band_dp.cu): wrappers, plain versions, launch counts.
+"""Kernels K1-K4 and the fused extension (csrc/band_dp.cu): wrappers,
+plain versions, launch counts.
 
 K1 ``swar_cost`` replaces gaml_tpu/ops/extend_pallas.py::swar_cost_pallas
 (forward direction: the d=0 cost saturated at 7).  K2
@@ -8,6 +9,9 @@ none).  ``dp_rows_exact`` replaces K3 ::dp_rows_pallas_reg_dyn, K4a
 ::dp_rows_pallas and K4b ::dp_rows_pallas_reg: the exact, unsaturated
 (cost, offset) of the start state.  ``extend_kernel_exact`` replaces
 ::extend_kernel_pallas: both directions of a staged dict in one launch.
+``extend_fused`` replaces K1 + K2 on the rescore's path: both directions
+of each candidate of a resident read set, gathered in the kernel from the
+read codes and the window buffer, and the epilogue (ok, errs, begin).
 Inputs follow the JAX kernels' candidate-minor layout:
 read_t [rmax, n] uint8 (codes 0-4, sentinel 6), gwin_t [rmax + 2*PAD, n]
 uint8 (codes 0-4, sentinel 8), rlen/glen [n] int32.  Unlike the TPU
@@ -27,12 +31,13 @@ import ctypes
 
 import torch
 
-from .extend import ERROR_LIMIT, PAD, dp_rows
+from .extend import ERROR_LIMIT, PAD, dp_rows, extend_epilogue, stage_views
 
 SAT = 7
 
 # launches of each kernel by its wrapper (plain-version calls not counted)
-LAUNCHES = {"swar_cost": 0, "swar_cost_accept": 0, "dp_rows_exact": 0}
+LAUNCHES = {"swar_cost": 0, "swar_cost_accept": 0, "dp_rows_exact": 0,
+            "extend_fused": 0}
 
 
 def dp_rows_exact_ref(read_t, gwin_t, rlen, glen):
@@ -75,21 +80,26 @@ def _check(read_t, gwin_t, rlen, glen):
     return rmax, n
 
 
-def _launch(name, read_t, gwin_t, rlen, glen, outs):
+def _call(name, device, tensors, ints, outs):
+    """Launch ``gaml_<name>`` on ``device``'s current stream with the
+    tensors' pointers, the ints and the outputs' pointers; count it."""
     from .build import load
 
-    rmax, n = read_t.shape
     lib = load()
     ptr = ctypes.c_void_p
-    with torch.cuda.device(read_t.device):
-        stream = torch.cuda.current_stream(read_t.device).cuda_stream
-        args = [ptr(read_t.data_ptr()), ptr(gwin_t.data_ptr()),
-                ptr(rlen.data_ptr()), ptr(glen.data_ptr()), n, rmax]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        args = [ptr(t.data_ptr()) for t in tensors] + list(ints)
         args += [ptr(o.data_ptr()) for o in outs]
         err = getattr(lib, "gaml_" + name)(*args, ptr(stream))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+
+
+def _launch(name, read_t, gwin_t, rlen, glen, outs):
+    rmax, n = read_t.shape
+    _call(name, read_t.device, (read_t, gwin_t, rlen, glen), (n, rmax), outs)
 
 
 def swar_cost(read_t, gwin_t, rlen, glen):
@@ -154,3 +164,60 @@ def extend_kernel_exact(st):
     cf, cb = c[:nb], c[nb:]
     ok = (cf <= ERROR_LIMIT) & (cb <= ERROR_LIMIT)
     return ok, cf + cb, a[nb:]
+
+
+def extend_fused_ref(codes, buf, base, glen, g0, r0, row, rmax: int):
+    """Plain torch version of the fused extension: ops.extend.stage_views,
+    dp_rows in each direction and extend_epilogue.  Returns (ok bool,
+    errs int32, begin int32), each [n]."""
+    i64 = [x.to(torch.int64) for x in (base, glen, g0, r0, row)]
+    base, glen, g0, r0, row = i64
+    read_len = torch.full_like(g0, codes.shape[1])
+    fwd, bwd = stage_views(codes, read_len, buf, base, glen, g0, r0, row,
+                           rmax)
+    cf, _ = dp_rows_exact_ref(*fwd)
+    cb, ab = dp_rows_exact_ref(*bwd)
+    ok = (cf <= ERROR_LIMIT) & (cb <= ERROR_LIMIT)
+    return extend_epilogue(ok, cf + cb, ab, g0, r0, g0 == 0)
+
+
+def extend_fused(codes, buf, base, glen, g0, r0, row, rmax: int):
+    """K1 + K2 fused: both directions of each candidate and the epilogue.
+
+    codes: [rows, L] uint8 read codes (orientation folded into ``row``);
+    buf: [G] uint8 window buffer; base/glen: each candidate's window
+    offset and length in buf; g0/r0: the seed start in the window and in
+    the oriented read; row: its row of codes; all int32 [n].  rmax is the
+    band's row bound (L - K on the rescore's path).  Returns (ok bool,
+    errs int32, begin int32), each [n]: errs and begin are meaningful
+    where ok."""
+    n = base.shape[0]
+    meta = {"base": base, "glen": glen, "g0": g0, "r0": r0, "row": row}
+    if codes.dim() != 2 or codes.dtype != torch.uint8:
+        raise ValueError(f"codes must be uint8 [rows, L], got {codes.dtype} "
+                         f"{tuple(codes.shape)}")
+    if buf.dim() != 1 or buf.dtype != torch.uint8:
+        raise ValueError(f"buf must be uint8 [G], got {buf.dtype} "
+                         f"{tuple(buf.shape)}")
+    for name, t in meta.items():
+        if t.dtype != torch.int32 or tuple(t.shape) != (n,):
+            raise ValueError(f"{name}: want int32 ({n},), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    for name, t in [*meta.items(), ("codes", codes), ("buf", buf)]:
+        if t.device != codes.device:
+            raise ValueError(f"{name} is on {t.device}, codes on "
+                             f"{codes.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if codes.device.type == "cpu":
+        return extend_fused_ref(codes, buf, base, glen, g0, r0, row, rmax)
+    if codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {codes.device}")
+    dev = codes.device
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    errs = torch.empty(n, dtype=torch.int32, device=dev)
+    begin = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        _call("extend_fused", dev, (codes, buf, base, glen, g0, r0, row),
+              (n, codes.shape[1], rmax), (ok, errs, begin))
+    return ok, errs, begin

@@ -2,14 +2,16 @@
 batch entry points.
 
 Port of gaml_tpu/ops/extend_device.py and of the dispatch helpers of
-gaml_tpu/ops/extend.py.  Both stage with ops.extend.stage_views:
+gaml_tpu/ops/extend.py:
 
 - DeviceExtender (uniform-length read sets with a native bundle) keeps
   the read-code matrices resident on the device as uint8 [rows, L]
   (forward rows, then reverse-complement rows); a batch ships only the
-  window bytes and per-candidate (window, g0, r0, row, orient).  The
-  forward direction runs K1, the backward direction K2, or K3
-  (dp_rows_exact) under GAML_SWAR_BACKWARD=0.
+  window bytes and per-candidate (window, g0, r0, row, orient), and runs
+  in one launch of the fused extension kernel (both directions, gathers
+  and epilogue inside).  Under GAML_SWAR_BACKWARD=0 it stages with
+  ops.extend.stage_views and runs K1 forward and dp_rows_exact backward
+  (the K3 route).
 - extend_staged, batch_extend_arrays, batch_extend_multi and
   batch_extend_host (explicit reads of any lengths: read sets without a
   native bundle) stage a dict with ops.extend.stage_candidates and run
@@ -28,16 +30,16 @@ import torch
 
 from .extend import ERROR_LIMIT, K, extend_epilogue, stage_candidates, \
     stage_views
-from .extend_cuda import (dp_rows_exact, extend_kernel_exact, swar_cost,
-                          swar_cost_accept)
+from .extend_cuda import (dp_rows_exact, extend_fused, extend_kernel_exact,
+                          swar_cost, swar_cost_accept)
 
 
 def extend_candidates(codes, read_len, buf, base, glen, g0, r0, row,
                       rmax: int, exact_backward: bool = False):
-    """Stage (ops.extend.stage_views), run K1 forward and K2 backward (or
-    dp_rows_exact backward, the K3 route), apply the epilogue.  Returns
-    (ok bool, errs int32, begin int32), each [n], on the codes' device.
-    errs and begin are defined where ok."""
+    """The staged route: stage (ops.extend.stage_views), run K1 forward
+    and K2 backward (or dp_rows_exact backward, the K3 route), apply the
+    epilogue.  Returns (ok bool, errs int32, begin int32), each [n], on
+    the codes' device.  errs and begin are defined where ok."""
     fwd, bwd = stage_views(codes, read_len, buf, base, glen, g0, r0, row,
                            rmax)
     cf = swar_cost(*fwd)
@@ -55,7 +57,7 @@ class DeviceExtender:
     """Per-read-set extension engine with resident read-code matrices."""
 
     def __init__(self, codes_fwd: np.ndarray, codes_rc: np.ndarray,
-                 device="cpu"):
+                 device="cuda"):
         self.device = torch.device(device)
         self.L = int(codes_fwd.shape[1])
         self.n_rows = int(codes_fwd.shape[0])
@@ -66,14 +68,18 @@ class DeviceExtender:
 
     def extend(self, buf, base, glen, g0, r0, rows, orient):
         """Tensor form: buf uint8 [G]; the rest int64 [n] on the device.
-        Returns device tensors (ok, errs, begin).  GAML_SWAR_BACKWARD=0
-        runs the backward direction through dp_rows_exact (K3) instead of
-        K2, as the JAX engine does."""
-        read_len = torch.full_like(g0, self.L)
-        exact = os.environ.get("GAML_SWAR_BACKWARD", "1") == "0"
-        return extend_candidates(self.codes, read_len, buf, base, glen, g0,
-                                 r0, rows + orient * self.n_rows, self.rmax,
-                                 exact_backward=exact)
+        Returns device tensors (ok, errs, begin): one launch of the fused
+        kernel.  GAML_SWAR_BACKWARD=0 takes the staged route with the
+        backward direction through dp_rows_exact (K3), as the JAX engine
+        does."""
+        row = rows + orient * self.n_rows
+        if os.environ.get("GAML_SWAR_BACKWARD", "1") == "0":
+            return extend_candidates(self.codes, torch.full_like(g0, self.L),
+                                     buf, base, glen, g0, r0, row, self.rmax,
+                                     exact_backward=True)
+        return extend_fused(self.codes, buf,
+                            *(x.to(torch.int32) for x in
+                              (base, glen, g0, r0, row)), self.rmax)
 
     def run(self, seq_buf: np.ndarray, seq_base: np.ndarray,
             seq_lens: np.ndarray, seq_idx: np.ndarray, g0: np.ndarray,
@@ -111,7 +117,7 @@ def _empty():
     return (np.zeros(0, bool), np.zeros(0, np.int32), np.zeros(0, np.int32))
 
 
-def batch_extend_arrays(seq: np.ndarray, g0s, r0s, reads, device="cpu"):
+def batch_extend_arrays(seq: np.ndarray, g0s, r0s, reads, device="cuda"):
     """Extension of explicit (g0, r0, oriented read) candidates against
     one window (reads may differ in length).  Returns numpy (ok, errs,
     begin)."""
@@ -122,7 +128,7 @@ def batch_extend_arrays(seq: np.ndarray, g0s, r0s, reads, device="cpu"):
 
 
 def batch_extend_multi(seqs: List[np.ndarray], seq_idx, g0s, r0s, reads,
-                       device="cpu"):
+                       device="cuda"):
     """Extension across many windows in one staging and one launch:
     candidate i runs against seqs[seq_idx[i]].  Returns numpy (ok, errs,
     begin) over all candidates."""
@@ -133,7 +139,7 @@ def batch_extend_multi(seqs: List[np.ndarray], seq_idx, g0s, r0s, reads,
 
 
 def batch_extend_host(seq: np.ndarray, cands,
-                      device="cpu") -> List[Tuple[bool, int, int]]:
+                      device="cuda") -> List[Tuple[bool, int, int]]:
     """The aligner's per-window form: cands is [(Candidate,
     oriented_read)]; returns [(ok, errs, begin)] aligned with cands."""
     ok, errs, begin = batch_extend_arrays(

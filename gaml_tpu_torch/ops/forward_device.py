@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gaml_tpu.core import dna
+from ..core import dna
 
 from .forward_cuda import banded_forward
 

@@ -3,7 +3,7 @@
 Port of gaml_tpu/ops/rescore_device.py:
 
   candgen (ops.candgen_device, graph.cc:1289-1348)
-    -> staging + K1/K2 extension (ops.extend_device)
+    -> the fused K1 + K2 extension (ops.extend_device)
     -> first-wins (window, read, begin) dedup (graph.cc:895-897)
     -> per-read probability sum + GetTotalProb (graph.cc:1482-1537)
 
@@ -31,7 +31,7 @@ class DeviceRescorer:
     built from the same NativeAlignBundle as gaml_tpu's engines."""
 
     def __init__(self, bundle, read_lens_all: np.ndarray = None,
-                 ext: DeviceExtender = None, device="cpu"):
+                 ext: DeviceExtender = None, device="cuda"):
         self.device = torch.device(device)
         self.gen = DeviceCandGen(bundle, self.device)
         self.ext = ext if ext is not None else DeviceExtender(
@@ -57,10 +57,21 @@ class DeviceRescorer:
         c = self.gen.query(seqs, cap)
         if c.overflow:
             return None, None, c.n_total
+        ext = self._extend(c) if c.n_total else None
+        return self.score(c, ext, log_match, log_mismatch, total_len,
+                          min_prob_per_base, min_prob_start)
+
+    def score(self, c: Candidates, ext, log_match: float,
+              log_mismatch: float, total_len: int, min_prob_per_base: float,
+              min_prob_start: float):
+        """The stages after the extension: first-wins dedup of ``ext`` =
+        (ok, errs, begin) over the candidates ``c`` (None when there are
+        none), the per-read probability sum and GetTotalProb.  Returns
+        (score, zero_reads, n_total)."""
         read_probs = torch.zeros(self.n_reads, dtype=torch.float32,
                                  device=self.device)
-        if c.n_total:
-            ok, errs, begin = self._extend(c)
+        if ext is not None:
+            ok, errs, begin = ext
             new_grp = torch.ones_like(ok)
             new_grp[1:] = (c.seg[1:] != c.seg[:-1]) | \
                 (c.rid[1:] != c.rid[:-1])

@@ -1,1 +1,3 @@
-"""Read sets routed through the port's device backend."""
+from .config import SingleReadConfig, PairedReadConfig
+from .readset import ReadSet
+from .calculator import ProbCalculator, ScoringState

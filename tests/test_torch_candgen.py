@@ -6,15 +6,15 @@ import pytest
 
 from gaml_tpu.native import query_windows_batch
 from gaml_tpu.ops.candgen_device import DeviceCandGen as JaxCandGen
-from gaml_tpu_torch.native import load_native
 from gaml_tpu_torch.ops.candgen_device import DeviceCandGen
 
 from test_candgen_device import make_bundle, sample_world
+from test_torch_kernels import port_native_lib
 
 
 @pytest.fixture(autouse=True)
 def native_library():
-    if load_native() is None:
+    if port_native_lib() is None:
         pytest.skip("native library unavailable")
 
 

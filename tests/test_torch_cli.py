@@ -1,6 +1,6 @@
 """The port's CLI (gaml_tpu_torch.cli) end to end on the CPU: the same
-anneal trace and output files as gaml_tpu.cli --backend device, and no
-jax anywhere in the port's process."""
+anneal trace and output files as gaml_tpu.cli on both backends (device
+and bfs), and no jax anywhere in the port's process."""
 import json
 import os
 import subprocess
@@ -10,15 +10,14 @@ import numpy as np
 import pytest
 import torch
 
-from gaml_tpu_torch.native import load_native
-
 from fixtures import lastgraph_text, random_seq, write_fastq
 from test_scoring import make_pairs
+from test_torch_kernels import port_native_lib
 
 
 @pytest.fixture(autouse=True)
 def native_library():
-    if load_native() is None:
+    if port_native_lib() is None:
         pytest.skip("native library unavailable")
 
 
@@ -120,16 +119,44 @@ def test_trace_and_outputs_match_jax_device_backend(tmp_path, monkeypatch,
     port_against_jax(tmp_path, monkeypatch, capsys, trimmed=False)
 
 
+@pytest.mark.parametrize("trimmed", [False, True])
+def test_bfs_backend_matches_jax_bfs_backend(tmp_path, monkeypatch, capsys,
+                                            trimmed):
+    """--backend bfs is the port's own copy of the host route: the same
+    itnum trace and .walks/.fasta as gaml_tpu.cli --backend bfs, on
+    uniform and on quality-trimmed reads, with no window batch sent to
+    the device."""
+    from gaml_tpu.cli import main as jax_main
+    from gaml_tpu_torch.cli import main as port_main
+
+    config = write_world(tmp_path, trimmed=trimmed)
+    monkeypatch.chdir(tmp_path)
+    assert jax_main([config("jax"), "--backend", "bfs"]) == 0
+    jax_out = capsys.readouterr().out
+    assert port_main([config("port"), "--backend", "bfs",
+                      "--device", "cpu"]) == 0
+    port_out = capsys.readouterr().out
+    trace = itnum_lines(port_out)
+    assert len(trace) >= 25
+    assert trace == itnum_lines(jax_out)
+    summary = json.loads(port_out.splitlines()[-1].split(
+        "device work: ", 1)[1])
+    assert summary["backend"] == "bfs" and summary["batches"] == 0
+    for ext in ("walks", "fasta"):
+        assert (tmp_path / f"port.{ext}").read_bytes() == \
+            (tmp_path / f"jax.{ext}").read_bytes()
+
+
 def test_mixed_length_trace_matches_jax_device_backend(tmp_path,
                                                        monkeypatch, capsys):
     """A quality-trimmed library (no native bundle): every window batch
     is one batch_extend_multi call (the exact kernel's route), counted in
     the summary line."""
-    from gaml_tpu_torch.align import aligner
+    from gaml_tpu_torch.ops import extend_device
 
     calls = []
-    real = aligner.batch_extend_multi
-    monkeypatch.setattr(aligner, "batch_extend_multi",
+    real = extend_device.batch_extend_multi
+    monkeypatch.setattr(extend_device, "batch_extend_multi",
                         lambda *a: calls.append(len(a[4])) or real(*a))
     summary = port_against_jax(tmp_path, monkeypatch, capsys, trimmed=True)
     assert summary["batches"] == len(calls) > 0

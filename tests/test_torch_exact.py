@@ -175,7 +175,8 @@ def test_stage_candidates_matches_jax(multi):
         reads = [r for r, k in zip(reads, keep) if k]
     want = jext.stage_candidates(seq, g0s, r0s, reads, read_ids=rids, **kw)
     got = text.stage_candidates(seq, g0s, r0s, reads, rmax=want["rmax"],
-                                nb=len(want["valid"]), read_ids=rids, **kw)
+                                nb=len(want["valid"]), read_ids=rids,
+                                device="cpu", **kw)
     assert len({len(r) for r in reads}) > 1
     assert set(got) == set(want)
     for k, v in want.items():
@@ -186,7 +187,7 @@ def test_stage_candidates_matches_jax(multi):
         else:
             assert got[k] == v, k
     # the default shapes (no TPU rounding) stage the same rows
-    small = text.stage_candidates(seq, g0s, r0s, reads, **kw)
+    small = text.stage_candidates(seq, g0s, r0s, reads, device="cpu", **kw)
     ok, errs, begin = extend_staged(small)
     ok_w, errs_w, begin_w = extend_staged(got)
     np.testing.assert_array_equal(ok, ok_w)
@@ -199,7 +200,8 @@ def test_batch_extend_routes_match_jax():
     multi-window, mixed-length batch with indels, against the JAX
     functions (jnp route): ok equal, errs and begin equal where ok."""
     seqs, seq_idx, g0s, r0s, reads, _rids = mixed_windows(seed=9)
-    ok, errs, begin = batch_extend_multi(seqs, seq_idx, g0s, r0s, reads)
+    ok, errs, begin = batch_extend_multi(seqs, seq_idx, g0s, r0s, reads,
+                                         "cpu")
     ok_j, errs_j, begin_j = jext.batch_extend_multi(
         seqs, seq_idx, g0s, r0s, reads, use_pallas=False)
     assert ok.sum() > 0 and (~ok).sum() > 0
@@ -209,7 +211,8 @@ def test_batch_extend_routes_match_jax():
 
     w0 = seq_idx == 0
     reads0 = [r for r, k in zip(reads, w0) if k]
-    ok, errs, begin = batch_extend_arrays(seqs[0], g0s[w0], r0s[w0], reads0)
+    ok, errs, begin = batch_extend_arrays(seqs[0], g0s[w0], r0s[w0], reads0,
+                                          "cpu")
     ok_j, errs_j, begin_j = jext.batch_extend_arrays(seqs[0], g0s[w0],
                                                      r0s[w0], reads0)
     np.testing.assert_array_equal(ok, ok_j)
@@ -220,10 +223,10 @@ def test_batch_extend_routes_match_jax():
 
     cands = [(Candidate(i, int(g), int(r), 0), rd) for i, (g, r, rd) in
              enumerate(zip(g0s[w0], r0s[w0], reads0))]
-    got = batch_extend_host(seqs[0], cands)
+    got = batch_extend_host(seqs[0], cands, "cpu")
     want = jext.batch_extend_host(seqs[0], cands)
     assert [g[0] for g in got] == [w[0] for w in want]
     assert [g for g in got if g[0]] == [w for w in want if w[0]]
-    for out in (batch_extend_multi([], [], [], [], []),
-                batch_extend_arrays(seqs[0], [], [], [])):
+    for out in (batch_extend_multi([], [], [], [], [], "cpu"),
+                batch_extend_arrays(seqs[0], [], [], [], "cpu")):
         assert [len(x) for x in out] == [0, 0, 0]

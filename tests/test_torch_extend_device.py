@@ -3,28 +3,32 @@ CPU tensors) against the JAX DeviceExtender and host staging, and
 against the native window aligner for windows near the buffer end."""
 import numpy as np
 import pytest
+import torch
 
 from gaml_tpu.align.aligner import spell_subpath
 from gaml_tpu.core import dna
 from gaml_tpu.native import align_windows_batch, query_windows_batch
-from gaml_tpu.ops.extend import (batch_extend_arrays, extend_staged,
-                                 stage_candidates_uniform)
+from gaml_tpu.ops.extend import batch_extend_arrays as jax_extend_arrays
+from gaml_tpu.ops.extend import batch_extend_multi as jax_extend_multi
+from gaml_tpu.ops.extend import extend_staged, stage_candidates_uniform
 from gaml_tpu.ops.extend_device import DeviceExtender as JaxExtender
 from gaml_tpu_torch.align.aligner import window_columns
-from gaml_tpu_torch.native import load_native
+from gaml_tpu_torch.ops.extend_cuda import extend_fused
 from gaml_tpu_torch.ops.extend_device import (DeviceExtender,
-                                              batch_extend_arrays)
+                                              batch_extend_arrays,
+                                              extend_candidates)
 from gaml_tpu_torch.ops.rescore_device import DeviceRescorer
 
 from fixtures import make_linear_graph, random_seq, sample_reads
 from test_candgen_device import make_bundle, sample_world
 from test_extend_kernel import random_case, seeds_of
 from test_scoring import make_readset
+from test_torch_kernels import fused_world, port_native_lib
 
 
 @pytest.fixture(autouse=True)
 def native_library():
-    if load_native() is None:
+    if port_native_lib() is None:
         pytest.skip("native library unavailable")
 
 
@@ -134,7 +138,7 @@ def test_extend_reads_matches_jax_host_route():
     g0s, r0s = np.array(g0s, np.int32), np.array(r0s, np.int32)
     assert len({len(r) for r in reads}) > 1
     ok, errs, begin = batch_extend_arrays(seq, g0s, r0s, reads, "cpu")
-    ok_j, errs_j, begin_j = batch_extend_arrays(seq, g0s, r0s, reads)
+    ok_j, errs_j, begin_j = jax_extend_arrays(seq, g0s, r0s, reads)
     assert ok.sum() > 0
     np.testing.assert_array_equal(ok, ok_j)
     np.testing.assert_array_equal(errs[ok], errs_j[ok])
@@ -145,9 +149,8 @@ def test_aligner_redoes_cap_overflow_on_device(tmp_path):
     """A tandem-repeat window whose candidate count exceeds the batch cap
     is redone on the device with cap = count (the JAX route hands such a
     batch to the native aligner), and matches the native aligner."""
-    from gaml_tpu.core.graph import Graph
-    from gaml_tpu.scoring.readset import ReadSet
-    from gaml_tpu_torch.scoring.readset import adopt_readset
+    from gaml_tpu_torch.core.graph import Graph
+    from gaml_tpu_torch.scoring.readset import ReadSet
 
     from fixtures import write_fastq
 
@@ -161,10 +164,10 @@ def test_aligner_redoes_cap_overflow_on_device(tmp_path):
     gr.calc_prob_sums()
     gr.calc_normalize_map()
     rs = ReadSet(str(tmp_path / "rep"), str(fq), 0.96, 0.01,
-                 backend="device")
+                 backend="device", device="cpu")
     rs.preprocess_reads()
     rs.prepare_read_index()
-    aligner = adopt_readset(rs, "cpu").aligner
+    aligner = rs.aligner
     resc = aligner.ensure_device_rescorer()
     caps = []
     real = resc.extend
@@ -181,3 +184,36 @@ def test_aligner_redoes_cap_overflow_on_device(tmp_path):
     assert len(want[0]) > 0
     for name, a, b in zip(("pos", "ed", "rid", "orient"), got, want):
         np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fused_extension_matches_staged_route_and_jax(seed):
+    """The fused extension's plain version (on CPU tensors) against the
+    staged route it replaces (stage_views, K1 and K2's plain versions, the
+    epilogue) and the JAX package's extend_kernel staged on the host, on a
+    resident world with uniform reads, indels, seeds at genome position 0
+    and a window that ends the buffer: ok equal, errs and begin equal
+    wherever ok."""
+    codes, seqs, seq_idx, meta = fused_world(seed, 3000)
+    L = codes.shape[1]
+    buf = np.concatenate(seqs)
+    t = [torch.from_numpy(x) for x in meta]
+    got = [x.numpy() for x in extend_fused(torch.from_numpy(codes),
+                                           torch.from_numpy(buf), *t,
+                                           L - 15)]
+    base, glen, g0, r0, row = (x.to(torch.int64) for x in t)
+    staged = [x.numpy() for x in extend_candidates(
+        torch.from_numpy(codes), torch.full_like(g0, L),
+        torch.from_numpy(buf), base, glen, g0, r0, row, L - 15)]
+    jax_out = jax_extend_multi(seqs, seq_idx, meta[2], meta[3],
+                               [codes[r] for r in meta[4]],
+                               use_pallas=False)
+    ok = got[0]
+    assert 100 < ok.sum() < len(ok)
+    assert ok[meta[2] == 0].any() and (~ok[meta[2] == 0]).any()
+    last = seq_idx == len(seqs) - 1
+    assert ok[last].any()
+    for want in (staged, jax_out):
+        np.testing.assert_array_equal(ok, want[0])
+        np.testing.assert_array_equal(got[1][ok], want[1][ok])
+        np.testing.assert_array_equal(got[2][ok], want[2][ok])

@@ -8,6 +8,7 @@ no jax, so the card tests run on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 import json
+import os
 
 import numpy as np
 import pytest
@@ -16,12 +17,50 @@ import torch
 from gaml_tpu_torch.ops import forward_cuda
 from gaml_tpu_torch.ops.extend import PAD, SENT_GEN, SENT_READ
 from gaml_tpu_torch.ops.extend_cuda import (dp_rows_exact,
-                                            dp_rows_exact_ref, swar_cost,
+                                            dp_rows_exact_ref, extend_fused,
+                                            extend_fused_ref, swar_cost,
                                             swar_cost_accept,
                                             swar_cost_accept_ref,
                                             swar_cost_ref)
 from gaml_tpu_torch.ops.forward_device import ForwardDeviceEngine, guide_steps
 from gaml_tpu_torch.tools import swar_kernel_proto
+
+
+def port_native_lib():
+    """The port's native library (built once, under its lock).  The JAX
+    package's bindings, where a test loads them, are pointed at the same
+    file (the same source), so tests that hold one against the other
+    never race on the JAX package's in-place build."""
+    from gaml_tpu_torch import native
+
+    lib = native.get_lib()
+    if lib is None:
+        return None
+    import gaml_tpu.native as jax_native
+
+    with jax_native._lock:
+        if jax_native._lib is None:
+            so = native.library_path()
+            os.utime(so)  # newer than the JAX package's copy of the source
+            jax_native._SO = so
+            jax_native._tried = False
+    return lib
+
+
+def port_linear_graph(seqs):
+    """The port's Graph of fixtures.make_linear_graph's chain of ``seqs``
+    (node 2i -> node 2i + 2)."""
+    from gaml_tpu_torch.core import dna
+    from gaml_tpu_torch.core.graph import Graph
+
+    gr = Graph()
+    for s in seqs:
+        gr.add_node_pair(dna.encode_seq(s))
+    for i in range(len(seqs) - 1):
+        gr.add_arc(2 * i, 2 * (i + 1))
+    gr.calc_prob_sums()
+    gr.calc_normalize_map()
+    return gr
 
 
 def random_band_inputs(seed, n, rmax):
@@ -37,6 +76,63 @@ def random_band_inputs(seed, n, rmax):
     rlen = rng.integers(0, rmax + 1, n).astype(np.int32)
     glen = rng.integers(0, rmax + PAD, n).astype(np.int32)
     return read, gwin, rlen, glen
+
+
+def fused_world(seed, n, L=40, genome_len=3000, n_reads=200):
+    """A resident read set and a window batch for the fused extension:
+    reads of one length L sampled from a random genome (4 % substitutions,
+    some deletions and insertions, 1 % N), both orientations as rows of
+    ``codes``; four windows, the last one ending the buffer (ROADMAP C1);
+    candidates mostly at random, a third at a read's true offset, 340 with
+    their seed at genome position 0 (40 of them true: read 0 starts 3 or
+    7 bases before window 2).  Returns (codes, seqs, seq_idx, and
+    the kernel's per-candidate int32 base, glen, g0, r0, row)."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len).astype(np.uint8)
+    genome[rng.random(genome_len) < 0.01] = 4
+    starts = rng.integers(0, genome_len - L - 2, n_reads)
+    reads = []
+    for p in starts.tolist():
+        r = genome[p:p + L + 2].copy()
+        e = rng.random(L + 2) < 0.04
+        r[e] = (r[e] + 1) % 4
+        u = rng.random()
+        if u < 0.15:  # a deletion from the read
+            j = int(rng.integers(1, L))
+            r = np.delete(r, j)
+        elif u < 0.3:  # an insertion into the read
+            j = int(rng.integers(1, L))
+            r = np.insert(r, j, int(rng.integers(0, 4)))
+        reads.append(r[:L])
+    reads = np.stack(reads)
+    reads[0] = genome[starts[0]:starts[0] + L]
+    comp = np.array([3, 2, 1, 0, 4], np.uint8)  # G=0, A=1, T=2, C=3, N=4
+    codes = np.ascontiguousarray(np.concatenate([reads,
+                                                 comp[reads][:, ::-1]]))
+    # window 2 starts 3 bases into read 0
+    w_start = [0, 700, int(starts[0]) + 3, genome_len - 600]
+    w_len = [500, 750, 40, 600]
+    seqs = [genome[a:a + b] for a, b in zip(w_start, w_len)]
+    base = np.concatenate([[0], np.cumsum(w_len)[:-1]])
+    seq_idx = rng.integers(0, len(seqs), n)
+    glen = np.array(w_len)[seq_idx]
+    r0 = rng.integers(0, L - 15 + 1, n)
+    g0 = rng.integers(0, np.maximum(glen - 15 + 1, 1))
+    row = rng.integers(0, 2 * n_reads, n)
+    for i in range(0, n, 3):
+        rid = int(rng.integers(0, n_reads))
+        p = int(starts[rid]) - w_start[seq_idx[i]]
+        if 0 <= p and p + L <= glen[i]:
+            row[i], r0[i] = rid, int(rng.integers(0, L - 15 + 1))
+            g0[i] = p + r0[i]
+    g0[rng.permutation(n)[:300]] = 0
+    # read 0's seeds at genome position 0 of window 2: ok iff r0 < 6
+    at0 = rng.permutation(n)[:40]
+    seq_idx[at0], glen[at0], row[at0], g0[at0] = 2, w_len[2], 0, 0
+    r0[at0] = 3 + 4 * (np.arange(40) % 2)
+    meta = tuple(x.astype(np.int32) for x in (base[seq_idx], glen, g0, r0,
+                                               row))
+    return codes, seqs, seq_idx, meta
 
 
 def test_wrappers_take_plain_version_on_cpu_and_check_inputs():
@@ -85,6 +181,43 @@ def test_exact_kernel_matches_plain_version_on_card():
     assert int((c_ref > 7).sum()) > 1000
     assert torch.equal(c, c_ref)
     assert torch.equal(a, a_ref)
+
+
+@pytest.mark.cuda
+def test_fused_extension_matches_plain_version_on_card():
+    """The fused extension on the card against its plain version on a
+    resident world at the rescore's read length (L = 100): ok everywhere,
+    errs and begin wherever ok (the kernel is exact everywhere, so all
+    three are held everywhere)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    codes, seqs, _idx, meta = fused_world(12, 20000, L=100,
+                                          genome_len=6000, n_reads=600)
+    args = [torch.from_numpy(codes).cuda(),
+            torch.from_numpy(np.concatenate(seqs)).cuda()]
+    args += [torch.from_numpy(x).cuda() for x in meta]
+    want = extend_fused_ref(*args, 100 - 15)
+    assert 100 < int(want[0].sum()) < len(meta[0])
+    got = extend_fused(*args, 100 - 15)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_fused_wrapper_checks_inputs():
+    codes, seqs, _idx, meta = fused_world(3, 50)
+    args = [torch.from_numpy(codes), torch.from_numpy(np.concatenate(seqs))]
+    args += [torch.from_numpy(x) for x in meta]
+    for g, w in zip(extend_fused(*args, 25), extend_fused_ref(*args, 25)):
+        assert torch.equal(g, w)
+    bad = list(args)
+    bad[2] = bad[2].to(torch.int64)
+    with pytest.raises(ValueError):
+        extend_fused(*bad, 25)
+    bad = list(args)
+    bad[0] = bad[0][:, ::2]
+    with pytest.raises(ValueError):
+        extend_fused(*bad, 25)
 
 
 def test_swar_prototype_tool_on_cpu(capsys):

@@ -1,22 +1,23 @@
 """Read sets of mixed read lengths (quality-trimmed libraries) on the
 port: no native bundle, so a window batch is one host candidate pass and
 one batch_extend_multi call (the exact kernel's route).  Held window by
-window against gaml_tpu's SubpathAligner(backend="device")."""
+window against gaml_tpu's SubpathAligner(backend="device"), both read
+sets built from the same FASTQ."""
 import numpy as np
 import pytest
 
 from gaml_tpu.scoring.readset import ReadSet
-from gaml_tpu_torch.align import aligner as port_aligner
-from gaml_tpu_torch.native import load_native
-from gaml_tpu_torch.scoring.readset import adopt_readset
+from gaml_tpu_torch.ops import extend_device as port_extend
+from gaml_tpu_torch.scoring.readset import ReadSet as PortReadSet
 
 from fixtures import make_linear_graph, sample_reads, write_fastq
 from test_scoring import MATCH, MISMATCH
+from test_torch_kernels import port_linear_graph, port_native_lib
 
 
 @pytest.fixture(autouse=True)
 def native_library():
-    if load_native() is None:
+    if port_native_lib() is None:
         pytest.skip("native library unavailable")
 
 
@@ -41,21 +42,27 @@ def test_trimmed_read_set_matches_jax_device_aligner(tmp_path, monkeypatch):
     rs.preprocess_reads()
     rs.prepare_read_index()
     jax_al = rs.aligner
+    port_rs = PortReadSet(str(tmp_path / "ptrim"), str(fq), MATCH, MISMATCH,
+                          backend="device", device="cpu")
+    port_rs.preprocess_reads()
+    port_rs.prepare_read_index()
     assert getattr(jax_al, "native_bundle", None) is None
     assert len({len(r) for r in reads}) > 5
     windows = [(0,), (0, 2), (2, 4, 6), (4, 6, 8), (0, 2, 4, 6, 8), (2,)]
     want = jax_al.align_subpaths_batch(gr, windows)
 
-    al = adopt_readset(rs, "cpu").aligner
+    al = port_rs.aligner
+    assert getattr(al, "native_bundle", None) is None
+    port_gr = port_linear_graph(node_seqs)
     calls = []
-    real = port_aligner.batch_extend_multi
+    real = port_extend.batch_extend_multi
 
     def spy(*args):
         calls.append(len(args[4]))
         return real(*args)
 
-    monkeypatch.setattr(port_aligner, "batch_extend_multi", spy)
-    got = al.align_subpaths_batch(gr, windows)
+    monkeypatch.setattr(port_extend, "batch_extend_multi", spy)
+    got = al.align_subpaths_batch(port_gr, windows)
     assert len(calls) == 1 and calls[0] > 50
     assert (al.device_batches, al.device_candidates) == (1, calls[0])
     assert sum(len(w) for w in want) > 50
@@ -63,8 +70,8 @@ def test_trimmed_read_set_matches_jax_device_aligner(tmp_path, monkeypatch):
         for name, a, b in zip(("pos", "ed", "rid", "orient"), g, w):
             np.testing.assert_array_equal(a, b, err_msg=f"win {i} {name}")
     # a deferred batch is one more device call with the same result
-    fin = al.align_subpaths_batch(gr, windows[:2], defer=True)
+    fin = al.align_subpaths_batch(port_gr, windows[:2], defer=True)
     assert len(calls) == 2 and fin() == got[:2]
     # the per-window form (_extend_all, batch_extend_host) agrees too
     for w, g in zip(windows, got):
-        assert al.align_subpath(gr, w) == g
+        assert al.align_subpath(port_gr, w) == g

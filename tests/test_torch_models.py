@@ -79,7 +79,8 @@ def test_single_end_model_matches_jax(world):
     lens = [len(r) for r in reads]
     want = jmodels.SingleEndModel(MATCH, MISMATCH).score_candidates(
         seq, cands, len(reads), lens, len(seq))
-    got = tmodels.SingleEndModel(MATCH, MISMATCH).score_candidates(
+    got = tmodels.SingleEndModel(MATCH, MISMATCH,
+                                 device="cpu").score_candidates(
         seq, cands, len(reads), lens, len(seq))
     assert got[1] == want[1]
     np.testing.assert_allclose(got[0], want[0], rtol=2e-6)
@@ -153,14 +154,15 @@ def test_dedup_matches_jax():
 
 def test_paired_end_model_matches_jax():
     """tests/test_models.py::test_paired_end_model's pair, and the model
-    carried across with from_jax."""
+    carried across with from_params."""
     jm = jmodels.PairedEndModel(insert_mean=200, insert_std=20,
                                 match_prob=MATCH, mismatch_prob=MISMATCH)
     args = ([[(10, (0, 0))]], [[(180, (0, 1))]], 1, [30], [30], 600)
     want = jm.score_positions(*args)
     for model in (tmodels.PairedEndModel(200, 20, match_prob=MATCH,
-                                         mismatch_prob=MISMATCH),
-                  tmodels.from_jax(jm)):
+                                         mismatch_prob=MISMATCH,
+                                         device="cpu"),
+                  tmodels.from_params(*jax_params(jm), device="cpu")):
         got = model.score_positions(*args)
         assert got[1] == want[1] == 0
         np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
@@ -202,7 +204,7 @@ def test_paired_score_device_matches_jax_and_host(tmp_path):
     np.testing.assert_allclose(float(got[0]), host_score, rtol=1e-5)
 
     model = tmodels.PairedEndModel(im, istd, match_prob=MATCH,
-                                   mismatch_prob=MISMATCH)
+                                   mismatch_prob=MISMATCH, device="cpu")
     score, zeros, _ = model.score_positions(rs1.positions, rs2.positions,
                                             40, [L] * 40, [L] * 40, tl)
     assert zeros == host_zero
@@ -218,7 +220,22 @@ def test_stage_positions_dense_drops_like_jax():
             np.testing.assert_array_equal(a, b)
 
 
+def jax_params(model):
+    """(kind, params) of a JAX package model, read from its attributes,
+    for the port's from_params."""
+    keys = ["match_prob", "mismatch_prob", "min_prob_per_base",
+            "min_prob_start"]
+    kind = "base"
+    if isinstance(model, jmodels.PairedEndModel):
+        kind, keys = "paired", keys + ["insert_mean", "insert_std"]
+    elif isinstance(model, jmodels.SingleEndModel):
+        kind = "single"
+    return kind, {k: getattr(model, k) for k in keys}
+
+
 def test_from_jax_carries_the_configuration():
+    """from_params on the parameters of each JAX model: the same class,
+    configuration and scores."""
     kw = dict(match_prob=0.9, mismatch_prob=0.02, min_prob_per_base=-0.5,
               min_prob_start=-8.0)
     for jm, cls in ((jmodels.SingleEndModel(**kw), tmodels.SingleEndModel),
@@ -226,9 +243,10 @@ def test_from_jax_carries_the_configuration():
                      tmodels.PairedEndModel),
                     (jmodels.LikelihoodModel(**kw),
                      tmodels.LikelihoodModel)):
-        tm = tmodels.from_jax(jm)
+        tm = tmodels.from_params(*jax_params(jm), device="cpu")
         assert type(tm) is cls and isinstance(tm, torch.nn.Module)
         assert tm.device == torch.device("cpu")
+        assert tmodels.from_params(*jax_params(jm)).device.type == "cuda"
         for k in list(kw) + ["log_match", "log_mismatch"]:
             assert getattr(tm, k) == getattr(jm, k), k
         if cls is tmodels.PairedEndModel:
@@ -239,9 +257,11 @@ def test_from_jax_carries_the_configuration():
         idx.add_read(c, i)
     cands = gen_candidates(idx, dict(enumerate(reads)), seq)
     args = (seq, cands, len(reads), [len(r) for r in reads], len(seq))
-    got = tmodels.from_jax(jmodels.SingleEndModel(**kw)).score_candidates(
-        *args)
-    want = tmodels.SingleEndModel(**kw).score_candidates(*args)
+    got = tmodels.from_params(*jax_params(jmodels.SingleEndModel(**kw)),
+                              device="cpu").score_candidates(*args)
+    want = tmodels.SingleEndModel(**kw, device="cpu").score_candidates(*args)
+    with pytest.raises(ValueError):
+        tmodels.from_params("pacbio", kw, device="cpu")
     assert got[:2] == want[:2]
     np.testing.assert_array_equal(got[2], want[2])
 
@@ -264,8 +284,8 @@ def test_floor_of_long_pairs_does_not_underflow(tmp_path):
     assert host_zero >= 3 and np.isfinite(host_score)
     args = (rs1.positions, rs2.positions, 30, [L] * 30, [L] * 30, tl)
     kw = dict(match_prob=MATCH, mismatch_prob=MISMATCH)
-    score, zeros, _ = tmodels.PairedEndModel(im, istd, **kw).score_positions(
-        *args)
+    score, zeros, _ = tmodels.PairedEndModel(
+        im, istd, **kw, device="cpu").score_positions(*args)
     assert zeros == host_zero
     np.testing.assert_allclose(score, host_score, rtol=1e-5)
     j_score, j_zeros, _ = jmodels.PairedEndModel(im, istd,

@@ -1,8 +1,9 @@
 """The port's PacBio read set (gaml_tpu_torch.scoring.pacbio, CPU tensors:
-the plain version of K5): forward batches against the JAX function at the
-read set's own band width, walk scores against the native route, the
-routing and staging choices, and an anneal-scale quality bound against
-the native float64 route."""
+the plain version of K5), built from test_pacbio's reads on the port's own
+graph: forward batches against the JAX function at the read set's own
+band width, walk scores against the native route, the routing and
+staging choices, and an anneal-scale quality bound against the native
+float64 route."""
 import sys
 
 import numpy as np
@@ -11,28 +12,42 @@ import pytest
 import jax.numpy as jnp
 
 from gaml_tpu.ops.forward import banded_forward as jax_banded_forward
-from gaml_tpu_torch.native import load_native
-from gaml_tpu_torch.scoring.pacbio import (TorchPacbioReadSet,
-                                           adopt_pacbio_readset, job_arrays)
+from gaml_tpu_torch.scoring.calculator import ProbCalculator
+from gaml_tpu_torch.scoring.pacbio import PacbioReadSet, job_arrays
 
 from fixtures import make_linear_graph
-from test_pacbio import REPO_TOOLS, make_pb_readset
+from test_pacbio import PB_MATCH, REPO_TOOLS, make_pb_readset
+from test_torch_kernels import port_linear_graph, port_native_lib
 
 WALKS = [[0], [4], [0, 2, 4]]
 
 
 def needs_native():
-    if load_native() is None:
+    if port_native_lib() is None:
         pytest.skip("native library unavailable")
+
+
+def port_pb_readset(tmp_path, seqs, rng, name, width=64, **kw):
+    """test_pacbio.make_pb_readset's reads (``kw``: n_reads, rlen, err)
+    in the port's read set on the CPU, anchored on the port's graph of
+    ``seqs``.  Returns (graph, read set)."""
+    jgr, _ = make_linear_graph(np.random.default_rng(0),
+                               [len(s) for s in seqs])
+    make_pb_readset(tmp_path, jgr, seqs, rng, name=name, **kw)
+    gr = port_linear_graph(seqs)
+    rs = PacbioReadSet(str(tmp_path / f"port_{name}"),
+                       str(tmp_path / f"{name}.fq"), PB_MATCH, 0.05,
+                       forward_width=width, device="cpu")
+    rs.preprocess_reads()
+    rs.compute_anchors(gr, persist=False)
+    return gr, rs
 
 
 def world(tmp_path, name, width, n_reads=16, seed=21):
     rng = np.random.default_rng(seed)
-    gr, seqs = make_linear_graph(rng, [900, 120, 1200])
-    rs, _ = make_pb_readset(tmp_path, gr, seqs, np.random.default_rng(9),
-                            n_reads=n_reads, rlen=400, err=0.08, name=name)
-    rs.forward_width = width
-    return gr, rs
+    _gr, seqs = make_linear_graph(rng, [900, 120, 1200])
+    return port_pb_readset(tmp_path, seqs, np.random.default_rng(9), name,
+                           width, n_reads=n_reads, rlen=400, err=0.08)
 
 
 def recorded(rs):
@@ -56,7 +71,6 @@ def test_forward_batches_match_jax_at_forward_width(tmp_path, monkeypatch,
     forward_width and agrees with the JAX function there (ROADMAP C5)."""
     monkeypatch.setenv("GAML_PB_DEVICE_MIN_CELLS", "0")
     gr, rs = world(tmp_path, f"fb{width}", width)
-    adopt_pacbio_readset(rs, "cpu")
     calls = recorded(rs)
     rs.precompute_ranges_for_paths(gr, WALKS)
     assert calls and any(ext is not None for _s, _j, ext, _o in calls)
@@ -77,7 +91,6 @@ def test_dense_staging_equals_resident(tmp_path, monkeypatch):
     staged densely into the same kernel: the same outputs, bit for bit."""
     monkeypatch.setenv("GAML_PB_DEVICE_MIN_CELLS", "0")
     gr, rs = world(tmp_path, "res", 64)
-    adopt_pacbio_readset(rs, "cpu")
     prep = rs._slow_prepare(gr, WALKS[0], save_to_cache=False)
     jobs = prep["jobs"]
     assert jobs and all(len(j) == 4 for j in jobs)
@@ -93,23 +106,23 @@ def test_dense_staging_equals_resident(tmp_path, monkeypatch):
 
 
 def test_prewarm_is_noop_and_mesh_dispatch_raises(tmp_path):
+    """The port's read set has no prewarm ladder (nothing compiles ahead
+    of the anneal) and runs its batches on its own device; the mesh
+    scorer is not ported and says so."""
     gr, rs = world(tmp_path, "pw", 64, n_reads=4)
-    anchors = dict(rs.anchors_cache)
-    assert adopt_pacbio_readset(rs, "cpu") is rs
-    assert isinstance(rs, TorchPacbioReadSet)
-    assert rs.anchors_cache == anchors  # the host state is kept
-    assert rs.prewarm_device() is None
-    assert rs.prewarm_device_async() is None
+    assert not hasattr(rs, "prewarm_device")
+    assert not hasattr(rs, "prewarm_device_async")
+    assert rs.device.type == "cpu"
+    assert PacbioReadSet("x", "x.fq", 0.8, 0.05).device.type == "cuda"
     assert not getattr(rs, "dp_cells", None)
-    rs.forward_dispatch = lambda *a: None
-    prep = rs._slow_prepare(gr, WALKS[0], save_to_cache=False)
+    pc = ProbCalculator([], [], [(None, rs)], gr)
     with pytest.raises(NotImplementedError, match="A10"):
-        rs._forward_batch(prep["seq"], prep["jobs"])
+        pc.enable_sharded_pacbio(mesh=None)
 
 
 @pytest.mark.parametrize("width", [64, 128])
 def test_read_probabilities_match_native(tmp_path, monkeypatch, width):
-    """Walk scores of the adopted read set (plain K5, float32) against the
+    """Walk scores of the port's read set (plain K5, float32) against the
     native float64 route at the same width: positions equal, logprobs
     within test_pacbio's device-route bound."""
     needs_native()
@@ -119,7 +132,6 @@ def test_read_probabilities_match_native(tmp_path, monkeypatch, width):
     want = [rs_nat.get_read_probabilities(gr, w) for w in WALKS]
     assert set(rs_nat.dp_cells) == {"native"}
     monkeypatch.setenv("GAML_PB_DEVICE_MIN_CELLS", "0")
-    adopt_pacbio_readset(rs_dev, "cpu")
     got = [rs_dev.get_read_probabilities(gr, w) for w in WALKS]
     assert set(rs_dev.dp_cells) == {"torch"}
     n = 0
@@ -138,7 +150,6 @@ def test_small_batches_stay_native(tmp_path, monkeypatch):
     kernel, the rest on the engine, each counted under its route."""
     needs_native()
     gr, rs = world(tmp_path, "thr", 64)
-    adopt_pacbio_readset(rs, "cpu")
     prep = rs._slow_prepare(gr, WALKS[0], save_to_cache=False)
     cells = sum(len(j[0]) for j in prep["jobs"]) * 64
     monkeypatch.setenv("GAML_PB_DEVICE_MIN_CELLS", str(cells + 1))
@@ -161,23 +172,19 @@ def test_f32_route_anneal_quality_bound(tmp_path, monkeypatch):
     kernel's accumulation class) ends in quality-equivalent assemblies
     with near-equal best scores."""
     needs_native()
-    from gaml_tpu.core.io import output_paths_to_file
-    from gaml_tpu.optimize.anneal import Optimizer
-    from gaml_tpu.optimize.settings import AssemblySettings
-    from gaml_tpu.scoring.calculator import ProbCalculator
-    from gaml_tpu.scoring.config import SingleReadConfig
+    from gaml_tpu_torch.core.io import output_paths_to_file
+    from gaml_tpu_torch.optimize.anneal import Optimizer
+    from gaml_tpu_torch.optimize.settings import AssemblySettings
+    from gaml_tpu_torch.scoring.config import SingleReadConfig
 
     rng = np.random.default_rng(8)
-    gr, seqs = make_linear_graph(
+    _gr, seqs = make_linear_graph(
         rng, [2200, 150, 2500, 120, 2300, 200, 2400])
     genome = "".join(seqs)
 
     def run(tag, port):
-        rs, _ = make_pb_readset(tmp_path, gr, seqs,
-                                np.random.default_rng(4), n_reads=30,
-                                rlen=1000, err=0.08, name=f"q{tag}")
-        if port:
-            adopt_pacbio_readset(rs, "cpu")
+        gr, rs = port_pb_readset(tmp_path, seqs, np.random.default_rng(4),
+                                 f"q{tag}", n_reads=30, rlen=1000, err=0.08)
         cfg = SingleReadConfig(penalty_constant=0.0001, step=100)
         pc = ProbCalculator([], [], [(cfg, rs)], gr)
         settings = AssemblySettings(

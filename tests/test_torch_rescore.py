@@ -4,16 +4,16 @@ import numpy as np
 import pytest
 
 from gaml_tpu.ops.rescore_device import DeviceRescorer as JaxRescorer
-from gaml_tpu_torch.native import load_native
 from gaml_tpu_torch.ops.rescore_device import DeviceRescorer
 
 from test_candgen_device import make_bundle, sample_world
 from test_rescore_device import MATCH, MISMATCH, MPB, MPS
+from test_torch_kernels import port_native_lib
 
 
 @pytest.fixture(autouse=True)
 def native_library():
-    if load_native() is None:
+    if port_native_lib() is None:
         pytest.skip("native library unavailable")
 
 
