@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Two checkouts of the port on one NVIDIA GPU, phase against phase.
 
-    python3 chip_ab.py OTHER [--phases 1,2,3,4,8,9] [--log FILE]
+    python3 chip_ab.py OTHER [--phases 1,2,3,4,5,6,7,8,9] [--log FILE]
 
 OTHER is another checkout of the repository (for example the parent
 commit unpacked with ``git archive``).  The named phases of each tree's
@@ -14,7 +14,11 @@ a2], "this": [b1, b2]}}``.  The phases' own output goes to ``--log`` when
 given.  Kernel times are CUDA-event medians, the rest host-clock medians or
 walls, as chip_smoke.py measures them; the extra ``candgen`` and
 ``extend`` stages of phases 2-3 are timed here the same way in both
-trees.  Any failed check of a phase fails its process and this script.
+trees.  Phase 5 reports K5 at both widths, phase 6 the PacBio
+precompute's walls, DP shares and native-vs-card crossover, phase 7 the
+PacBio anneal's walls and K5 launches (phases 6-7 share one world, as in
+chip_smoke.py).  Any failed check of a phase fails its process and this
+script.
 """
 import argparse
 import json
@@ -59,8 +63,25 @@ for tag, world in (("2", (400_000, 100_000)), ("3", (2_800_000, 300_000))):
                                                 host_clock=True)
     out[f"rescore_{tag}.extend_ms"] = cs.timer(
         device, lambda: dev._extend(c), 10)
+if "5" in phases:
+    fwd = cs.phase_forward_kernel(device)
+    for width in (64, 128):
+        out[f"K5_w{width}.ms"] = fwd[width]["ms"]
 tmp = tempfile.TemporaryDirectory(prefix="gaml_ab_")
 d = tmp.name
+if phases & {"6", "7"}:
+    pb_dir = os.path.join(d, "pacbio")
+    os.makedirs(pb_dir)
+    pb_genome = cs.write_pacbio_world(pb_dir)
+if "6" in phases:
+    sc = cs.phase_pacbio_scoring(device, pb_dir)
+    for k in ("device_s", "device_dp_s", "native_s", "native_dp_s",
+              "crossover_cells"):
+        out["pacbio." + k] = sc[k]
+if "7" in phases:
+    an = cs.phase_pacbio_anneal(device, pb_dir, pb_genome)
+    for k in ("dev_wall_s", "nat_wall_s", "launches"):
+        out["pacbio_anneal." + k] = an[k]
 if phases & {"4", "9"}:
     t0 = time.perf_counter()
     world = cs.write_anneal_world(d) + (time.perf_counter() - t0,)

@@ -12,7 +12,7 @@ the JAX package is imported.
 
 0. the card (nvidia-smi name and power limit), torch and CUDA versions,
    the kernel build (ptxas registers and spills, the DPX instructions in
-   the SASS of the band kernels);
+   the SASS of the band kernels, K5's MUFU instructions);
 1. the fused extension kernel against its plain version on a resident
    world of 131072 candidates (reads of 100 bp), timed beside the staged
    route it replaces (stage_views + K1 + K2) on the same candidates; the
@@ -30,8 +30,11 @@ the JAX package is imported.
    ``--device cpu`` run of the same config and reported against the
    port's ``--backend bfs``;
 5. kernel K5 (the PacBio banded forward DP) against its plain torch
-   version on the card at widths 64 and 128, at an S. aureus-sized batch
-   (2.8 Mb walk buffer, 2048 jobs, reads up to 5 kb);
+   version in float32 and float64 and against the twin of its arithmetic
+   on the card at widths 64 and 128, at an S. aureus-sized batch (2.8 Mb
+   walk buffer, 2048 jobs, reads up to 5 kb) and on an adversarial batch
+   (guides 20-45 columns off or stuck at the buffer's start, targets that
+   end or start away from the band);
 6. long-read scoring at the repo's pinned scale (the examples/pacbio_run.py
    world: 1 Mb, 500 reads of 3 kb, 10 % errors, seed 5): the port's read
    set on the card against the same read set's native host route, and the
@@ -57,12 +60,13 @@ the JAX package is imported.
 
 Kernel times are the median over warm calls of CUDA events around one
 call (the launch included).  Each kernel's bound is the larger of its
-16-bit lane operations (or, for K5, special-function results) over the
-card's peak and the bytes it must move over 3.35 TB/s, from this run's
-inputs.  Any failed check raises and exits non-zero.  The last two lines are a JSON
-object describing each kernel and {"ok": true, "device": {...}}.  Without
-a CUDA device, or without the repository beside it, the script exits
-non-zero before any phase.
+16-bit lane operations (for K5: its FP32 instructions, or the longest
+job's serial FMA chain) over the card's peak and the bytes it must move
+over 3.35 TB/s, from this run's inputs.  Any failed check raises and
+exits non-zero.  The last two lines are a JSON object describing each
+kernel and {"ok": true, "device": {...}}.  Without a CUDA device, or
+without the repository beside it, the script exits non-zero before any
+phase.
 """
 import json
 import os
@@ -92,13 +96,16 @@ KERNELS = (  # (TPU kernel, entry name, source, the pallas_call it replaces)
     ("K6", "swar_cost:K6", BAND_DP, "tools/swar_kernel_proto.py:127"),
 )
 PB_MATCH, PB_MISMATCH = 0.85, 0.0375  # config mismatch_prob=0.0375
-# peaks of one NVIDIA H100 SXM for the bounds: HBM bytes/s; 16-bit lane
-# operations/s of the packed integer band (132 SMs x 64 int32 lanes x 2
-# lanes of 16 bits x 1.98 GHz); special-function (exp, log) results/s of
-# K5 (132 SMs x 16 x 1.98 GHz)
+# peaks of one NVIDIA H100 SXM for the bounds: HBM bytes/s; the SM clock;
+# 16-bit lane operations/s of the packed integer band (132 SMs x 64 int32
+# lanes x 2 lanes of 16 bits x 1.98 GHz); FP32 instructions/s of K5 (132
+# SMs x 128 lanes x 1.98 GHz); special-function (exp, log) results/s, the
+# bound of the earlier log-space form of K5 (132 SMs x 16 x 1.98 GHz)
 HBM_BPS = 3.35e12
-LANE_OPS = 132 * 64 * 2 * 1.98e9
-MUFU_OPS = 132 * 16 * 1.98e9
+SM_HZ = 1.98e9
+LANE_OPS = 132 * 64 * 2 * SM_HZ
+FP32_OPS = 132 * 128 * SM_HZ
+MUFU_OPS = 132 * 16 * SM_HZ
 # 16-bit lane operations per band cell (one candidate-row-diagonal): the
 # cost (match test, the diagonal select, substitution and read-skip each
 # an add and a min, three genome-skip add/min sweeps) and the accept
@@ -156,10 +163,10 @@ BAND_KERNELS = {"band_dp_kernelILb0ELb1E": "swar_cost",
 
 def sass_counts(so):
     """{mangled kernel name: {"sass": instructions, "dpx": DPX
-    instructions}} from cuobjdump -sass of the built library.  DPX counts
-    VIADDMNMX, VIMNMX3, VIBMNMX and every packed 16x2 form: the
-    instructions that exist in hardware on sm_90 and that an emulated
-    __viaddmin_s16x2 would not produce."""
+    instructions, "mufu": special-function instructions}} from cuobjdump
+    -sass of the built library.  DPX counts VIADDMNMX, VIMNMX3, VIBMNMX
+    and every packed 16x2 form: the instructions that exist in hardware on
+    sm_90 and that an emulated __viaddmin_s16x2 would not produce."""
     from gaml_tpu_torch.ops import build
 
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -175,17 +182,20 @@ def sass_counts(so):
                      r"([A-Z][A-Za-z0-9_.]*)", line)
         if name and m:
             op = m.group(1)
-            d = out.setdefault(name, {"sass": 0, "dpx": 0})
+            d = out.setdefault(name, {"sass": 0, "dpx": 0, "mufu": 0})
             d["sass"] += 1
             d["dpx"] += op.startswith(("VIADDMNMX", "VIMNMX3", "VIBMNMX")) \
                 or "16x2" in op
+            d["mufu"] += op.startswith("MUFU")
     return out
 
 
 def phase_card():
     """The card, the versions, the build; per band kernel its registers
-    and spills (-Xptxas -v) and its DPX instructions in the SASS.  Fails
-    if a band kernel has no DPX instruction or spills."""
+    and spills (-Xptxas -v) and its DPX instructions in the SASS, and per
+    width of K5 its registers, spills and MUFU (special-function)
+    instructions.  Fails if a band kernel has no DPX instruction or if
+    any of these kernels spills."""
     import torch
 
     from gaml_tpu_torch.native import get_lib
@@ -215,6 +225,16 @@ def phase_card():
               usage[entry].get("spill_stores", 0) == 0,
               f"{entry}: no DPX instruction in its SASS, or spills: "
               f"{usage[entry]}")
+        print(f"  {entry}: " + json.dumps(usage[entry]), flush=True)
+    for width in (64, 128):
+        frag = f"banded_forward_kernelILi{width}E"
+        names = [k for k in sass if frag in k]
+        check(len(names) == 1, f"K5 W={width}: kernels {names} in the SASS")
+        reg = ptxas_usage(build.build_info["log"], frag)
+        entry = f"banded_forward_w{width}"
+        usage[entry] = dict(reg[0] if reg else {}, **sass[names[0]])
+        check(usage[entry].get("spill_stores", 0) == 0,
+              f"{entry} spills: {usage[entry]}")
         print(f"  {entry}: " + json.dumps(usage[entry]), flush=True)
     return usage
 
@@ -736,86 +756,83 @@ def ptxas_usage(log, name):
     return list(out.values())
 
 
-def forward_inputs(seed, device, n_jobs=2048, rmax=5120,
-                   seq_len=2_800_000, err=0.1):
-    """K5 inputs of an S. aureus-sized long-read batch: a random walk
-    buffer; each job's read follows its guide path (steps from
-    {0,1,1,1,2}) with 10 % substitutions; ragged read lengths up to rmax;
-    random targets, some of which end inside the read's span."""
-    import torch
-
-    rng = np.random.default_rng(seed)
-    seq = rng.integers(0, 4, seq_len).astype(np.uint8)
-    rlen = rng.integers(rmax // 8, rmax + 1, n_jobs).astype(np.int32)
-    steps = rng.choice(np.array([0, 1, 1, 1, 2], np.uint8), (n_jobs, rmax))
-    c0 = rng.integers(256, seq_len - 2 * rmax - 256, n_jobs)
-    pos = c0[:, None] + np.cumsum(steps, axis=1, dtype=np.int64)
-    reads = seq[pos - 1]
-    sub = rng.random(reads.shape) < err
-    reads[sub] = (reads[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
-    gstart = c0 - rng.integers(0, 300, n_jobs)
-    span = pos[np.arange(n_jobs), rlen - 1] - gstart
-    glen = (span * rng.uniform(0.7, 1.3, n_jobs)).astype(np.int64)
-    t = lambda x, dt: torch.from_numpy(  # noqa: E731
-        np.ascontiguousarray(x, dtype=dt)).to(device)
-    return (t(reads, np.uint8), torch.arange(n_jobs, dtype=torch.int32,
-                                             device=device),
-            t(seq, np.uint8), t(steps, np.uint8), t(c0, np.int32),
-            t(gstart, np.int32), t(glen, np.int32), t(rlen, np.int32))
-
-
 def forward_bound(args, width):
-    """The bound of K5 on its inputs: 4 special-function results (two
-    log-add-exps) per band cell over MUFU_OPS, or the read and step bytes
-    of each job's rows, the walk buffer once, seven int32 in and one
-    float32 out per job over HBM_BPS."""
+    """The bound of K5 on its inputs, the largest of: 3 FP32 instructions
+    per band cell (the emission product, the up term's FMA, the chain
+    FMA) over FP32_OPS; the read and step bytes of each job's rows, the
+    walk buffer once, seven int32 in and one float32 out per job over
+    HBM_BPS; and the serial floor, the longest job's rows at one dependent
+    FMA (4 cycles) each.  ``mufu_bound_ms`` is the bound stated for the
+    earlier log-space form of the kernel: 4 special-function results (two
+    log-add-exps) per band cell over MUFU_OPS."""
     reads, _row, seq, _steps, _c0, _gs, _gl, rlen = args
     rows = int(rlen.sum())
-    t_ops = 4 * rows * width / MUFU_OPS * 1e3
-    nbytes = 2 * rows + seq.numel() + 32 * rlen.shape[0]
-    t_bytes = nbytes / HBM_BPS * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "mufu_ops": 4 * rows * width, "bytes": nbytes}
+    terms = {"fp32": 3 * rows * width / FP32_OPS * 1e3,
+             "bytes": (2 * rows + seq.numel() + 32 * rlen.shape[0])
+             / HBM_BPS * 1e3,
+             "serial": int(rlen.max()) * 4 / SM_HZ * 1e3}
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term],
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "bound_terms_ms": terms,
+            "fp32_ops": 3 * rows * width,
+            "mufu_bound_ms": 4 * rows * width / MUFU_OPS * 1e3}
 
 
 def phase_forward_kernel(device, reps=10, **shape):
-    """K5 against its plain version at both band widths.  Both are
-    float32 with different exp/log1p implementations and a different
-    order of the gap-chain scan, so the tolerance per job is
-    |kernel - plain| <= 1e-4 |plain| + 1e-3."""
+    """K5 against its plain version at both band widths, on an S.
+    aureus-sized batch (forward_bench.aureus_batch: 2.8 Mb walk buffer,
+    2048 jobs, reads of 640-5120) and on the adversarial batch
+    (forward_bench.adversarial_batch, 72 jobs of 2-5 kb), each against the
+    log-space plain version in float32 and in float64 and against the
+    float64 twin of the kernel's arithmetic (banded_forward_scaled), with
+    the tolerance |kernel - plain| <= 1e-4 |plain| + 1e-3 per job."""
     import torch
 
-    from gaml_tpu_torch.ops import build, forward_cuda as fc
+    from gaml_tpu_torch.ops import forward_cuda as fc
+    from gaml_tpu_torch.tools.forward_bench import (adversarial_batch,
+                                                    aureus_batch, to_device,
+                                                    within_tolerance)
 
-    args = forward_inputs(0, device, **shape)
+    batches = {"aureus": to_device(aureus_batch(0, **shape), device),
+               "adversarial": to_device(adversarial_batch(3, n_jobs=72),
+                                        device)}
     lm, lmm = float(np.log(PB_MATCH)), float(np.log(PB_MISMATCH))
-    cells_per_lane = int(args[7].sum())
+    refs = {"f32": {}, "f64": {"dtype": torch.float64},
+            "twin": {"scaled": True}}
     out = {}
     for width in (64, 128):
-        got = fc.banded_forward(*args, lm, lmm, width)
-        sync(device)
-        t0 = time.perf_counter()
-        want = fc.banded_forward_ref(*args, lm, lmm, width)
-        sync(device)
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        diff = (got - want).abs()
-        bad = int((diff > 1e-4 * want.abs() + 1e-3).sum())
-        check(bool(torch.isfinite(got).all()), f"K5 W={width}: non-finite")
-        check(bad == 0, f"K5 W={width}: {bad} jobs outside the tolerance "
-              f"(max abs err {float(diff.max()):.3g})")
-        ms = timer(device, lambda: fc.banded_forward(*args, lm, lmm, width),
-                   reps)
-        out[width] = {
-            "max_abs_err": float(diff.max()),
-            "max_rel_err": float((diff / want.abs()).max()),
-            "ms": ms, "plain_ms": plain_ms,
-            "cells_per_s": cells_per_lane * width / (ms / 1e3),
-            "ptxas": ptxas_usage(build.build_info["log"],
-                                 f"banded_forward_kernelILi{width}E"),
-            **forward_bound(args, width)}
+        res = {}
+        for name, args in batches.items():
+            got = fc.banded_forward(*args, lm, lmm, width)
+            sync(device)
+            check(bool(torch.isfinite(got).all()),
+                  f"K5 W={width} {name}: non-finite")
+            for ref, kw in refs.items():
+                t0 = time.perf_counter()
+                want = fc.banded_forward_ref(*args, lm, lmm, width, **kw)
+                sync(device)
+                if name == "aureus" and ref == "f32":
+                    res["plain_ms"] = (time.perf_counter() - t0) * 1e3
+                    res["max_rel_err"] = float(
+                        ((got - want).abs() / want.abs()).max())
+                bad, err = within_tolerance(got, want)
+                check(bad == 0,
+                      f"K5 W={width} {name}: {bad} jobs outside the "
+                      f"tolerance of the {ref} plain version (max abs err "
+                      f"{err:.3g})")
+                key = "max_abs_err" if ref == "f32" else \
+                    f"max_abs_err_{ref}"
+                res[key if name == "aureus" else f"{name}_{key}"] = err
+        args = batches["aureus"]
+        res["ms"] = timer(device, lambda: fc.banded_forward(
+            *args, lm, lmm, width), reps)
+        res["cells_per_s"] = int(args[7].sum()) * width / (res["ms"] / 1e3)
+        res.update(forward_bound(args, width))
+        res["share"] = res["bound_ms"] / res["ms"]
+        out[width] = res
         print(f"  W={width} jobs={len(args[7])} rmax={args[3].shape[1]} "
-              f"cells={cells_per_lane * width}: " + json.dumps(out[width]),
+              f"cells={int(args[7].sum()) * width}: " + json.dumps(res),
               flush=True)
     return out
 
@@ -1398,7 +1415,10 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed):
     replaced on the same candidates.  No PyTorch call computes a banded
     min-plus or log-space forward DP, so library_ms is null throughout.
     ``card`` gives each band kernel's registers, spills and DPX
-    instruction count (phase 0)."""
+    instruction count, and K5's registers, spills and MUFU count per
+    width (phase 0).  K5's max_abs_err is against the float32 plain
+    version; the float64 one, the twin's and the adversarial batch's
+    stand beside it, the largest over both widths."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     fused = kern["extend_fused"]
     k1k2 = dict({k: fused[k] for k in keys},
@@ -1422,9 +1442,18 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed):
                        ("K3", "dp_rows_exact"), ("K4a", "dp_rows_exact"),
                        ("K4b", "dp_rows_exact"), ("K6", "swar_cost")):
         kern[tpu] = dict(kern[tpu], compiled=card[entry])
+    for k in ("max_abs_err_f64", "max_abs_err_twin",
+              "adversarial_max_abs_err", "adversarial_max_abs_err_f64",
+              "adversarial_max_abs_err_twin"):
+        kern["K5"][k] = max(fwd[64][k], fwd[128][k])
     kern["K5"].update(width=64, ms_w128=fwd[128]["ms"],
                       plain_ms_w128=fwd[128]["plain_ms"],
                       bound_ms_w128=fwd[128]["bound_ms"],
+                      bound_term=fwd[64]["bound_term"],
+                      mufu_bound_ms=fwd[64]["mufu_bound_ms"],
+                      mufu_bound_ms_w128=fwd[128]["mufu_bound_ms"],
+                      compiled=card["banded_forward_w64"],
+                      compiled_w128=card["banded_forward_w128"],
                       launches=pb["launches"])
     return {"kernels": [
         dict({k: kern[tpu][k] for k in keys}, name=name, tpu_kernel=tpu,

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from .forward import banded_forward as _plain_forward
+from .forward import banded_forward_scaled
 
 WIDTHS = (64, 128)
 
@@ -33,9 +34,12 @@ LAUNCHES = {"banded_forward": 0}
 
 
 def banded_forward_ref(reads, row, seq, steps, c0, gstart, glen, rlen,
-                       log_match: float, log_mismatch: float, width: int):
+                       log_match: float, log_mismatch: float, width: int,
+                       dtype=None, scaled: bool = False):
     """Plain torch version of K5: the dense rows and guide centers of the
-    jobs, then gaml_tpu_torch.ops.forward.banded_forward in float32."""
+    jobs, then gaml_tpu_torch.ops.forward.banded_forward in ``dtype``
+    (default float32), or with ``scaled`` the twin of the kernel's
+    arithmetic, banded_forward_scaled (default float64, the kernel's)."""
     b, rmax = steps.shape
     k = min(rmax, reads.shape[1])
     dense = torch.full((b, rmax), 6, dtype=torch.uint8, device=reads.device)
@@ -43,8 +47,11 @@ def banded_forward_ref(reads, row, seq, steps, c0, gstart, glen, rlen,
     centers = torch.cat([c0[:, None].to(torch.int64),
                          c0[:, None].to(torch.int64)
                          + torch.cumsum(steps.to(torch.int64), 1)], 1)
-    return _plain_forward(seq, dense, rlen.clamp(max=k), centers, gstart,
-                          glen, log_match, log_mismatch, rmax, width)
+    args = (seq, dense, rlen.clamp(max=k), centers, gstart, glen, log_match,
+            log_mismatch, rmax, width)
+    if scaled:
+        return banded_forward_scaled(*args, dtype=dtype or torch.float64)
+    return _plain_forward(*args, dtype=dtype or torch.float32)
 
 
 def _check(reads, row, seq, steps, c0, gstart, glen, rlen):

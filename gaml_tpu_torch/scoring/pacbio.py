@@ -48,11 +48,13 @@ from ..ops.forward_device import ForwardDeviceEngine, guide_steps
 K_MIN_ANCHOR_LEN = 80  # reference kMinAnchorLen (graph.cc:31)
 
 # GAML_PB_DEVICE_MIN_CELLS default: the native-vs-card crossover in DP
-# cells, measured by chip_smoke.py phase 6 on an NVIDIA H100 80GB HBM3
-# (700 W) against the native kernel on its host's 8 cores: one job of
-# 1024 bases at width 64 (65536 cells) took 1.69 ms native and 1.71 ms on
-# the card, one of 2048 bases 6.6 ms and 3.1 ms
-DEVICE_MIN_CELLS = 131072
+# cells, measured by chip_smoke.py phase 6 (two runs of one
+# chip_ab.py --phases 5,6,7 call) on an NVIDIA H100 80GB HBM3 (700 W)
+# against the native kernel on its host's 8 cores: one job of 128 bases
+# at width 64 (8192 cells) took 0.42 / 0.56 ms native and 0.58 / 0.58 ms
+# on the card, one of 256 bases (16384 cells) 0.65 / 1.04 ms and 0.60 /
+# 0.64 ms, one of 1024 bases 1.85 / 2.68 ms and 0.89 / 1.07 ms
+DEVICE_MIN_CELLS = 16384
 RESIDENT_MAX = 4_000_000_000  # GAML_PB_RESIDENT_MAX default, bytes
 
 

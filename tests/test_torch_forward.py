@@ -1,8 +1,11 @@
 """Kernel K5 of the port: the plain torch version
 (gaml_tpu_torch.ops.forward.banded_forward) against the JAX function, the
-Pallas kernel in interpret mode and the float64 oracle; the wrapper's CPU
-route and input checks; and the engine's resident and dense staging.  The
-card test of K5 is in test_torch_kernels.py."""
+Pallas kernel in interpret mode and the float64 oracle; the CPU twin of
+the kernel's scaled linear-space arithmetic (banded_forward_scaled)
+against the float64 forms and the JAX function, on the test worlds and on
+an adversarial batch; the wrapper's CPU route and input checks; and the
+engine's resident and dense staging.  The card test of K5 is in
+test_torch_kernels.py."""
 import numpy as np
 import pytest
 import torch
@@ -14,9 +17,12 @@ from gaml_tpu.ops.forward import banded_forward as jax_banded_forward
 from gaml_tpu.ops.forward import forward_full_numpy
 from gaml_tpu.ops.forward_pallas import banded_forward_pallas
 from gaml_tpu_torch.ops import forward_cuda
-from gaml_tpu_torch.ops.forward import banded_forward
+from gaml_tpu_torch.ops.forward import banded_forward, banded_forward_scaled
 from gaml_tpu_torch.ops.forward_cuda import banded_forward_ref
 from gaml_tpu_torch.ops.forward_device import ForwardDeviceEngine, guide_steps
+from gaml_tpu_torch.tools.forward_bench import (ADVERSARIAL_KINDS,
+                                                adversarial_batch,
+                                                dense_layout)
 
 from fixtures import random_seq
 from test_forward_kernel import MATCH, MISMATCH, noisy_copy
@@ -87,6 +93,107 @@ def test_plain_float64_matches_full_oracle(seed, glen, start, stop, noisy):
     want = forward_full_numpy(genome, read, MATCH, MISMATCH)
     assert got.dtype == np.float64
     assert got[0] == pytest.approx(want, rel=1e-4)
+
+
+# the kernel's tolerance: |scaled - want| <= 1e-4 |want| + 1e-3
+SCALED_TOL = dict(rtol=1e-4, atol=1e-3)
+
+
+def scaled(genome, reads, rlens, centers, gst, gl, width):
+    return banded_forward_scaled(
+        *(torch.from_numpy(np.ascontiguousarray(x))
+          for x in (genome, reads, rlens, centers, gst, gl)),
+        LM, LMM, reads.shape[1], width).numpy()
+
+
+def jax_forward(genome, reads, rlens, centers, gst, gl, width):
+    return np.asarray(jax_banded_forward(
+        *(jnp.asarray(x) for x in (genome, reads, rlens, centers, gst, gl)),
+        LM, LMM, reads.shape[1], width))
+
+
+@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("seed,cut", [(0, False), (1, True), (2, True)])
+def test_scaled_matches_float64_and_jax(seed, cut, width):
+    """The twin of the kernel's arithmetic (float64 probabilities, one
+    binary exponent per job) against the exact band in float64 and the
+    JAX function, on the make_batch worlds."""
+    rng = np.random.default_rng(seed)
+    world = make_batch(rng)
+    world = world + targets(rng, len(world[2]), len(world[0]), cut)
+    got = scaled(*world, width)
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    np.testing.assert_allclose(
+        got, port(*world, width, dtype=torch.float64), **SCALED_TOL)
+    np.testing.assert_allclose(got, jax_forward(*world, width), **SCALED_TOL)
+
+
+@pytest.mark.parametrize("width,glen,start,stop,noisy", [
+    (64, 24, 4, 20, False), (64, 28, 3, 25, True),
+    (128, 40, 5, 30, False), (128, 60, 10, 50, True)])
+def test_scaled_matches_full_oracle(width, glen, start, stop, noisy):
+    """A band as wide as the genome: the twin against the unbanded
+    float64 oracle."""
+    rng = np.random.default_rng(glen)
+    genome = dna.encode_seq(random_seq(rng, glen))
+    read = genome[start:stop].copy()
+    if noisy:
+        read = noisy_copy(rng, read)
+    centers = (np.arange(len(read) + 1) + start).astype(np.int32)[None]
+    got = scaled(genome, read[None], np.array([len(read)], np.int32),
+                 centers, np.zeros(1, np.int32), np.array([glen], np.int32),
+                 width)
+    want = forward_full_numpy(genome, read, MATCH, MISMATCH)
+    np.testing.assert_allclose(got, [want], **SCALED_TOL)
+
+
+@pytest.mark.parametrize("width", [64, 128])
+def test_scaled_adversarial_batch(width):
+    """Where scaled linear space could part from log space: the true path
+    20-45 columns off the guide (beyond a 64-lane band's half), a guide
+    stuck at the buffer's start while the true path runs on (lanes
+    hundreds of nats below the band's max that later carry the
+    alignment: float32 loses them, float64 keeps them), a target that
+    ends mid-read or starts beyond the band, empty targets and rows,
+    reads of 2-5 kb at 15 % errors.  The twin runs through the wrapper's
+    plain route (kernel layout) and is held against the exact band in
+    float64 and the JAX function."""
+    batch = adversarial_batch(seed=3)
+    args = tuple(torch.from_numpy(x) for x in batch)
+    got = banded_forward_ref(*args, LM, LMM, width, scaled=True).numpy()
+    want = banded_forward_ref(*args, LM, LMM, width,
+                              dtype=torch.float64).numpy()
+    np.testing.assert_allclose(got, want, **SCALED_TOL)
+    np.testing.assert_allclose(got, jax_forward(*dense_layout(batch), width),
+                               **SCALED_TOL)
+    empty = np.isin(np.array(ADVERSARIAL_KINDS),
+                    ("target_mid", "target_beyond", "glen0", "rlen0"))
+    assert (got[empty] <= -1e29).all()
+    assert np.isfinite(got[~empty]).all() and (got[~empty] > -1e29).all()
+    assert (batch[7][~empty] >= 2000).all()
+
+
+@pytest.mark.parametrize("width", [64, 128])
+def test_scaled_float32_misses_stuck_guide(width):
+    """Why the kernel computes in float64: on the adversarial batch's
+    stuck-guide job the lanes that later carry the alignment lie more
+    than float32's 103 nats (2^-149) below the band's max, so the twin's
+    arithmetic in float32 misses the float64 band by more than the
+    tolerance, and in float64 stays within it."""
+    k = ADVERSARIAL_KINDS.index("stuck")
+    reads, _row, seq, steps, c0, gst, gl, rl = (
+        torch.from_numpy(x) for x in adversarial_batch(seed=3))
+    job = slice(k, k + 1)
+    args = (reads[job], torch.zeros(1, dtype=torch.int32), seq, steps[job],
+            c0[job], gst[job], gl[job], rl[job], LM, LMM, width)
+    want = banded_forward_ref(*args, dtype=torch.float64).numpy()
+    assert np.isfinite(want).all() and (want > -1e29).all()
+    got = banded_forward_ref(*args, scaled=True).numpy()
+    np.testing.assert_allclose(got, want, **SCALED_TOL)
+    f32 = banded_forward_ref(*args, scaled=True, dtype=torch.float32)
+    miss = np.abs(f32.double().numpy() - want)
+    assert (miss > SCALED_TOL["rtol"] * np.abs(want)
+            + SCALED_TOL["atol"]).all()
 
 
 def kernel_inputs(genome, reads, rlens, centers, gst, gl):

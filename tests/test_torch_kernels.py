@@ -289,3 +289,24 @@ def test_banded_forward_matches_plain_version_on_card(width):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert ((got - want).abs() <= 1e-4 * want.abs() + 1e-3).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 128])
+def test_banded_forward_adversarial_on_card(width):
+    """K5 on the adversarial batch (guides 20-45 columns off the true
+    path, targets ending mid-read or starting beyond the band, empty jobs)
+    against the plain version in float64 and against the twin of its
+    arithmetic."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from gaml_tpu_torch.tools.forward_bench import (adversarial_batch,
+                                                    to_device,
+                                                    within_tolerance)
+
+    args = to_device(adversarial_batch(3, n_jobs=18), "cuda")
+    lm, lmm = float(np.log(0.85)), float(np.log(0.0375))
+    got = forward_cuda.banded_forward(*args, lm, lmm, width)
+    for kw in ({"dtype": torch.float64}, {"scaled": True}):
+        want = forward_cuda.banded_forward_ref(*args, lm, lmm, width, **kw)
+        assert within_tolerance(got, want)[0] == 0
