@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Two checkouts of the port on one NVIDIA GPU, phase against phase.
 
-    python3 chip_ab.py OTHER [--phases 1,2,3,4,5,6,7,8,9] [--log FILE]
+    python3 chip_ab.py OTHER [--phases 1,2,3,4,5,6,7,8,9,10] [--log FILE]
 
 OTHER is another checkout of the repository (for example the parent
 commit unpacked with ``git archive``).  The named phases of each tree's
@@ -14,11 +14,17 @@ a2], "this": [b1, b2]}}``.  The phases' own output goes to ``--log`` when
 given.  Kernel times are CUDA-event medians, the rest host-clock medians or
 walls, as chip_smoke.py measures them; the extra ``candgen`` and
 ``extend`` stages of phases 2-3 are timed here the same way in both
-trees.  Phase 5 reports K5 at both widths, phase 6 the PacBio
+trees; phase 1 also times each tree's resident extension entry (the
+fused kernel where the tree has one, else the exact extension) at 1024
+and 8192 candidates.  Phase 5 reports K5 at both widths, phase 6 the PacBio
 precompute's walls, DP shares and native-vs-card crossover, phase 7 the
 PacBio anneal's walls and K5 launches (phases 6-7 share one world, as in
-chip_smoke.py).  Any failed check of a phase fails its process and this
-script.
+chip_smoke.py); phases 8-9 the exact band DP's times as each tree runs
+it (the exact extension in this tree, the stacked single-direction
+launch before it) and the models' forward step, phase 10 the
+mixed-length anneal's walls and its no-bundle batch split (phases 4, 9
+and 10 share the aureus world).  Any failed check of a phase fails its
+process and this script.
 """
 import argparse
 import json
@@ -42,10 +48,24 @@ device = torch.device("cuda", 0)
 torch.cuda.set_device(device)
 out = {}
 if "1" in phases:
+    from gaml_tpu_torch.ops import extend_cuda as kc
+
     kern = cs.phase_kernels(device)
-    for name in ("swar_cost", "swar_cost_accept", "extend_fused"):
+    for name in ("swar_cost", "swar_cost_accept", "extend_fused",
+                 "extend_exact"):
         if name in kern:
             out[name + ".ms"] = kern[name]["ms"]
+            if name.startswith("extend"):
+                out["resident_extension.ms"] = kern[name]["ms"]
+    # the tree's resident extension entry (extend_fused where the tree has
+    # it, else extend_exact) on the first n candidates of the same world:
+    # the phase-4 anneal's batches are about 1000 candidates
+    entry = getattr(kc, "extend_fused", None) or kc.extend_exact
+    full, rmax, _ = cs.resident_world(device)
+    for n in (1024, 8192):
+        args = full[:-5] + tuple(x[:n].contiguous() for x in full[-5:])
+        out[f"resident_extension_n{n}.ms"] = cs.timer(
+            device, lambda: entry(*args, rmax), 50)
 for tag, world in (("2", (400_000, 100_000)), ("3", (2_800_000, 300_000))):
     if tag not in phases:
         continue
@@ -82,7 +102,7 @@ if "7" in phases:
     an = cs.phase_pacbio_anneal(device, pb_dir, pb_genome)
     for k in ("dev_wall_s", "nat_wall_s", "launches"):
         out["pacbio_anneal." + k] = an[k]
-if phases & {"4", "9"}:
+if phases & {"4", "9", "10"}:
     t0 = time.perf_counter()
     world = cs.write_anneal_world(d) + (time.perf_counter() - t0,)
 if "4" in phases:
@@ -91,16 +111,28 @@ if "4" in phases:
         out["anneal." + k] = res[k]
 if "8" in phases:
     ex = cs.phase_exact(device)
-    out["exact_K3.ms"] = ex["K3"]["ms"]
-    out["exact_K4b.ms"] = ex["K4b"]["ms"]
-    out["rescore_k3_route.ms"] = ex["rescore"]["k3_route_ms"]
+    for key in ("K3", "K4b", "dp_rows_exact", "dp_rows_exact_stacked",
+                "exact_resident", "exact_staged"):
+        if key in ex:
+            out[f"exact_{key}.ms"] = ex[key]["ms"]
+    if "rescore" in ex:
+        out["rescore_k3_route.ms"] = ex["rescore"]["k3_route_ms"]
 if "9" in phases:
     m = cs.phase_models(device, d)
     out["exact_K4a.ms"] = m["K4a"]["ms"]
-    out["single.forward_ms"] = m["single"]["forward_ms"]
+    for k in ("forward_ms", "staging_ms", "launch_ms", "dedup_ms",
+              "reduction_ms"):
+        if k in m["single"]:
+            out["single." + k] = m["single"][k]
     out["single.host_candgen_s"] = m["single"]["host_candgen_s"]
     out["paired.model_s"] = m["paired"]["model_s"]
     out["paired.host_scorer_s"] = m["paired"]["host_scorer_s"]
+if "10" in phases:
+    mx = cs.phase_mixed_anneal(device, d)
+    for k in ("dev_wall_s", "bfs_wall_s", "cpu_wall_s"):
+        out["mixed." + k] = mx[k]
+    for k, v in mx.get("batch_split", {}).items():
+        out["mixed_batch." + k] = v
 tmp.cleanup()
 print("AB " + json.dumps(out), flush=True)
 '''

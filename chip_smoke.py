@@ -12,17 +12,18 @@ the JAX package is imported.
 
 0. the card (nvidia-smi name and power limit), torch and CUDA versions,
    the kernel build (ptxas registers and spills, the DPX instructions in
-   the SASS of the band kernels, K5's MUFU instructions);
-1. the fused extension kernel against its plain version on a resident
-   world of 131072 candidates (reads of 100 bp), timed beside the staged
-   route it replaces (stage_views + K1 + K2) on the same candidates; the
-   staged K1/K2 entries against their plain versions at the band shape
-   (131072 candidates, rmax 96);
+   the SASS of the band kernels, among them the exact two-direction
+   extension's two loaders, K5's MUFU instructions);
+1. the exact two-direction extension (resident loader) against its plain
+   version on the rescore's resident world of 131072 candidates (reads of
+   100 bp), timed beside the staged route it replaces (stage_views + K1 +
+   K2) on the same candidates; the staged K1/K2 entries against their
+   plain versions at the band shape (131072 candidates, rmax 96);
 2. candidate generation and the full rescore at bench.py's world (400 kb
    genome, 100k reads of 100 bp) against the native C++ query and the
    port's own CPU engine (which runs the plain versions), with warm
    timings, the stage split (candgen, extension, dedup + reduction) and
-   the fused kernel against its plain version on the rescore's own
+   the extension against its plain version on the rescore's own
    candidates;
 3. the same at S. aureus scale (2.8 Mb, 300k reads of 100 bp);
 4. an anneal through ``python -m gaml_tpu_torch.cli --device cuda`` on the
@@ -43,20 +44,27 @@ the JAX package is imported.
    process, under the profiler) against the port's CLI on the native host
    route, held to the assembly-level bound of
    tests/test_pacbio.py::test_f32_route_anneal_quality_bound;
-8. the exact band DP (dp_rows_exact, the counterpart of K3/K4a/K4b)
-   against its plain version at phase 1's band inputs, one launch and the
-   stacked two-direction launch; the K6 tool
-   (gaml_tpu_torch.tools.swar_kernel_proto); and the phase-2 rescore on
-   the K3 route (GAML_SWAR_BACKWARD=0) against the default route;
+8. the exact band DP: the single-direction API (dp_rows_exact, the
+   contract of K3/K4a/K4b) against its plain version at phase 1's band
+   inputs, one launch and stacked; the exact two-direction extension
+   (the port of K3/K4a/K4b) against its plain version on a ragged draw
+   of 131072 candidates (reads of 60-100 bp), resident and staged at
+   rmax 96; and the K6 tool (gaml_tpu_torch.tools.swar_kernel_proto);
 9. the device likelihood models at S. aureus scale: SingleEndModel on
    phase 3's world (host candidates) against the model on the CPU and
-   DeviceRescorer.rescore, and PairedEndModel on the phase-4 world's
-   frag library against the host paired scorer over the start walks;
+   DeviceRescorer.rescore, its forward step split into staging, launch,
+   dedup and reduction, the exact extension on its candidates (both
+   loaders) beside the stacked single-direction launch the port made
+   before; PairedEndModel on the phase-4 world's frag
+   library against the host paired scorer over the start walks; and the
+   paired reduction on five pairs whose probabilities lie below float32's
+   range, against the float64 host (ROADMAP C12);
 10. a mixed-length anneal: phase 4's world with 20 % of each frag mate
    file's reads quality-trimmed (no native bundle, so its windows run
-   through the exact kernel while the advice library stays on the fused
-   kernel), ``--device cuda`` against ``--device cpu``, reported against
-   ``--backend bfs``.
+   on the host index and a resident ragged read set through the exact
+   extension, while the advice library keeps the device candgen),
+   ``--device cuda`` against ``--device cpu``, reported against
+   ``--backend bfs``; and the host split of one such window batch.
 
 Kernel times are the median over warm calls of CUDA events around one
 call (the launch included).  Each kernel's bound is the larger of its
@@ -84,12 +92,12 @@ MPB, MPS = -0.7, -10.0
 READ_LEN = 100
 BAND_DP = "gaml_tpu_torch/csrc/band_dp.cu"
 KERNELS = (  # (TPU kernel, entry name, source, the pallas_call it replaces)
-    ("K1", "extend_fused", BAND_DP, "gaml_tpu/ops/extend_pallas.py:467"),
-    ("K2", "extend_fused", BAND_DP, "gaml_tpu/ops/extend_pallas.py:600"),
-    ("K3", "dp_rows_exact:K3", BAND_DP, "gaml_tpu/ops/extend_pallas.py:710"),
-    ("K4a", "dp_rows_exact:K4a", BAND_DP,
+    ("K1", "extend_exact:K1", BAND_DP, "gaml_tpu/ops/extend_pallas.py:467"),
+    ("K2", "extend_exact:K2", BAND_DP, "gaml_tpu/ops/extend_pallas.py:600"),
+    ("K3", "extend_exact:K3", BAND_DP, "gaml_tpu/ops/extend_pallas.py:710"),
+    ("K4a", "extend_exact_staged:K4a", BAND_DP,
      "gaml_tpu/ops/extend_pallas.py:287"),
-    ("K4b", "dp_rows_exact:K4b", BAND_DP,
+    ("K4b", "extend_exact_staged:K4b", BAND_DP,
      "gaml_tpu/ops/extend_pallas.py:231"),
     ("K5", "banded_forward", "gaml_tpu_torch/csrc/banded_forward.cu",
      "gaml_tpu/ops/forward_pallas.py:134"),
@@ -158,7 +166,8 @@ def timer(device, fn, reps, host_clock=False):
 BAND_KERNELS = {"band_dp_kernelILb0ELb1E": "swar_cost",
                 "band_dp_kernelILb1ELb1E": "swar_cost_accept",
                 "band_dp_kernelILb1ELb0E": "dp_rows_exact",
-                "extend_fused_kernel": "extend_fused"}
+                "extend_kernelINS_12ResidentLoad": "extend_exact",
+                "extend_kernelINS_10StagedLoad": "extend_exact_staged"}
 
 
 def sass_counts(so):
@@ -285,22 +294,84 @@ def staged_bound(args, accept):
     return band_bound(0 if accept else nrow, nrow if accept else 0, nbytes)
 
 
-def fused_bound(args, rmax):
-    """The bound of the fused extension on its inputs (codes, buf, base,
-    glen, g0, r0, row): the backward rows (cost and offset), the forward
-    rows (cost), the read rows the candidates name, the window buffer,
-    five int32 and three outputs (9 bytes) per candidate."""
+def exact_bound(rows_b, rows_f, nbytes):
+    """The exact extension's bound, counted two ways: with the operations
+    its algorithm needs (the backward rows' cost and accept offset, the
+    forward rows' cost alone), which ``bound_ms`` and the share use; and
+    with the count of the stacked launch the port made before (every row
+    of both directions with the offset), ``bound_ms_stacked_count``."""
+    nb, nf = int(rows_b.sum()), int(rows_f.sum())
+    res = band_bound(nf, nb, nbytes)
+    stacked = band_bound(0, nb + nf, nbytes)
+    res.update(rows=nb + nf, bound_ms_stacked_count=stacked["bound_ms"],
+               lane_ops_stacked_count=stacked["lane_ops"])
+    return res
+
+
+def resident_exact_bound(args, rmax):
+    """The bound of extend_exact on (codes, lens, buf, base, glen, g0, r0,
+    row): the rows of both directions, the read rows the candidates name
+    (at their lengths, with their lengths), the window buffer, five int32
+    and three outputs (9 bytes) per candidate."""
     import torch
 
     from gaml_tpu_torch.ops.extend import K
 
-    codes, buf, _base, _glen, g0, r0, row = args
-    L = codes.shape[1]
-    rows_b = torch.where(g0 > 0, r0.clamp(max=rmax), 0)
-    rows_f = (L - r0 - K).clamp(0, rmax)
-    n = g0.shape[0]
-    nbytes = torch.unique(row).numel() * L + buf.numel() + 29 * n
-    return band_bound(int(rows_f.sum()), int(rows_b.sum()), nbytes)
+    _codes, lens, buf, _base, _glen, g0, r0, row = args
+    rows_b = torch.where(g0 > 0, r0, 0).clamp(0, rmax)
+    rows_f = (lens[row.to(torch.int64)] - r0 - K).clamp(0, rmax)
+    named = lens[torch.unique(row).to(torch.int64)]
+    nbytes = int(named.sum()) + 4 * named.numel() + buf.numel() \
+        + 29 * g0.shape[0]
+    return exact_bound(rows_b, rows_f, nbytes)
+
+
+def staged_exact_bound(st):
+    """The bound of extend_exact_staged on a staged dict: the rows of
+    both directions, one read byte and one genome byte a row (7 more
+    genome bytes to start a band), six int32, the start flag and three
+    outputs per candidate."""
+    rmax = st["read_f"].shape[1]
+    rows_b, rows_f = (st[k].clamp(0, rmax) for k in ("rlen_b", "rlen_f"))
+    live = int((rows_b > 0).sum()) + int((rows_f > 0).sum())
+    nbytes = 2 * int(rows_b.sum() + rows_f.sum()) + 7 * live \
+        + 34 * rows_b.shape[0]
+    return exact_bound(rows_b, rows_f, nbytes)
+
+
+def exact_against_plain_two(device, args, rmax, reps):
+    """The exact two-direction extension against its plain version:
+    ``args`` a staged dict (extend_exact_staged) or the resident
+    arguments with their row bound rmax (extend_exact).  ok equal
+    everywhere, errs and begin equal wherever ok (integers: the tolerance
+    is exact); its times, bound (both counts) and share."""
+    from gaml_tpu_torch.ops import extend_cuda as kc
+
+    if isinstance(args, dict):
+        run = lambda: kc.extend_exact_staged(args)  # noqa: E731
+        plain = lambda: kc.extend_exact_staged_ref(args)  # noqa: E731
+        bound = staged_exact_bound(args)
+    else:
+        run = lambda: kc.extend_exact(*args, rmax)  # noqa: E731
+        plain = lambda: kc.extend_exact_ref(*args, rmax)  # noqa: E731
+        bound = resident_exact_bound(args, rmax)
+    want = plain()
+    got = run()
+    sync(device)
+    ok = want[0]
+    check(bool((got[0] == ok).all()), "exact extension: ok differs from "
+          "its plain version")
+    err = max(int((g[ok] - w[ok]).abs().max()) if ok.any() else 0
+              for g, w in zip(got[1:], want[1:]))
+    check(err == 0, f"exact extension: errs/begin differ from the plain "
+          f"version by {err} where ok")
+    res = {"n": int(ok.numel()), "ok": int(ok.sum()), "max_abs_err": err,
+           "equal_everywhere": all(bool((g == w).all())
+                                   for g, w in zip(got, want)),
+           "ms": timer(device, run, reps), "plain_ms": timer(device, plain, 3),
+           **bound}
+    res["share"] = res["bound_ms"] / res["ms"]
+    return res
 
 
 def resident_world(device, n=None, genome_len=400_000, n_reads=100_000):
@@ -308,7 +379,7 @@ def resident_world(device, n=None, genome_len=400_000, n_reads=100_000):
     orientations' read codes (DeviceExtender), the genome as the window
     buffer, and the device candgen's candidates over it.  With ``n``,
     random candidates (any row, any seed offset, anywhere in the genome)
-    fill the batch up to n.  Returns the extend_fused arguments (int32
+    fill the batch up to n.  Returns the extend_exact arguments (int32
     per-candidate tensors), rmax and the candgen's count."""
     import torch
 
@@ -334,46 +405,21 @@ def resident_world(device, n=None, genome_len=400_000, n_reads=100_000):
                        zip((g0, r0, row), fill))
     m = g0.shape[0]
     i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
-    args = (ext.codes, c.codes, i32(torch.zeros(m, device=device)),
+    args = (ext.codes, ext.lens, c.codes, i32(torch.zeros(m, device=device)),
             i32(torch.full((m,), genome_len, device=device)), i32(g0),
             i32(r0), i32(row))
     return args, ext.rmax, c.n_total
 
 
-def fused_against_plain(device, args, rmax, reps):
-    """The fused extension against its plain version: ok equal
-    everywhere, errs and begin equal wherever ok (integers: the tolerance
-    is exact); its times and bound."""
-    from gaml_tpu_torch.ops import extend_cuda as kc
-
-    want = kc.extend_fused_ref(*args, rmax)
-    ok = want[0]
-    got = kc.extend_fused(*args, rmax)
-    sync(device)
-    check(bool((got[0] == ok).all()), "fused: ok differs from its plain "
-          "version")
-    err = max(int((g[ok] - w[ok]).abs().max()) if ok.any() else 0
-              for g, w in zip(got[1:], want[1:]))
-    check(err == 0, f"fused: errs/begin differ from the plain version by "
-          f"{err} where ok")
-    res = {"n": int(ok.numel()), "ok": int(ok.sum()), "max_abs_err": err,
-           "equal_everywhere": all(bool((g == w).all())
-                                   for g, w in zip(got, want))}
-    res["ms"] = timer(device, lambda: kc.extend_fused(*args, rmax), reps)
-    res["plain_ms"] = timer(device, lambda: kc.extend_fused_ref(*args, rmax),
-                            3)
-    res.update(fused_bound(args, rmax))
-    return res
-
-
 def phase_kernels(device, n=131072, rmax=96, reps=20):
-    """The fused extension against its plain version on a resident world
-    of n candidates, timed beside the staged route it replaces on the
-    same candidates (stage_views, K1, K2, the epilogue, and each of those
-    alone).  Then each staged entry against its plain version on band
-    inputs.  The outputs are integers, so the tolerance is exact
-    equality: K1's cost everywhere, K2's cost everywhere and its offset
-    wherever the exact cost is <= 6 (the contract of the TPU kernels)."""
+    """The exact extension (resident loader) against its plain version on
+    the rescore's resident world of n candidates, timed beside the staged
+    route it replaces on the same candidates (stage_views, K1, K2, the
+    epilogue, and each of those alone).  Then each staged entry against
+    its plain version on band inputs.  The outputs are integers, so the
+    tolerance is exact equality: K1's cost everywhere, K2's cost
+    everywhere and its offset wherever the exact cost is <= 6 (the
+    contract of the TPU kernels)."""
     import torch
 
     from gaml_tpu_torch.ops import extend_cuda as kc
@@ -381,27 +427,27 @@ def phase_kernels(device, n=131072, rmax=96, reps=20):
     from gaml_tpu_torch.ops.extend_device import extend_candidates
 
     fargs, frmax, n_cands = resident_world(device, n)
-    fused = fused_against_plain(device, fargs, frmax, reps)
-    fused["candgen_candidates"] = n_cands
-    codes, buf, *meta = fargs
+    res = exact_against_plain_two(device, fargs, frmax, reps)
+    res["candgen_candidates"] = n_cands
+    codes, _lens, buf, *meta = fargs
     i64 = [x.to(torch.int64) for x in meta]
     read_len = torch.full_like(i64[0], codes.shape[1])
     staged = extend_candidates(codes, read_len, buf, *i64, frmax)
-    got = kc.extend_fused(*fargs, frmax)
+    got = kc.extend_exact(*fargs, frmax)
     ok = got[0]
     check(bool((staged[0] == ok).all()) and all(
         bool((s[ok] == g[ok]).all()) for s, g in zip(staged[1:], got[1:])),
-        "the staged route and the fused kernel differ where ok")
+        "the staged route and the exact extension differ where ok")
     fwd, bwd = stage_views(codes, read_len, buf, *i64, frmax)
-    fused["staged_route_ms"] = timer(device, lambda: extend_candidates(
+    res["staged_route_ms"] = timer(device, lambda: extend_candidates(
         codes, read_len, buf, *i64, frmax), reps)
-    fused["stage_views_ms"] = timer(device, lambda: stage_views(
+    res["stage_views_ms"] = timer(device, lambda: stage_views(
         codes, read_len, buf, *i64, frmax), reps)
-    fused["staged_k1_ms"] = timer(device, lambda: kc.swar_cost(*fwd), reps)
-    fused["staged_k2_ms"] = timer(device, lambda: kc.swar_cost_accept(*bwd),
-                                  reps)
-    print(f"  fused n={n} L={codes.shape[1]}: " + json.dumps(fused),
-          flush=True)
+    res["staged_k1_ms"] = timer(device, lambda: kc.swar_cost(*fwd), reps)
+    res["staged_k2_ms"] = timer(device, lambda: kc.swar_cost_accept(*bwd),
+                                reps)
+    print(f"  resident extension n={n} L={codes.shape[1]}: "
+          + json.dumps(res), flush=True)
 
     args = band_inputs(0, n, rmax, device)
     c1, c1_ref = kc.swar_cost(*args), kc.swar_cost_ref(*args)
@@ -414,7 +460,7 @@ def phase_kernels(device, n=131072, rmax=96, reps=20):
     check(int(m.sum()) > n // 8, "too few unsaturated K2 candidates")
     check(err1 == 0, f"K1 differs from its plain version by {err1}")
     check(err2 == 0, f"K2 differs from its plain version by {err2}")
-    out = {"extend_fused": fused}
+    out = {"extend_exact": res}
     for name, err in (("swar_cost", err1), ("swar_cost_accept", err2)):
         out[name] = {
             "max_abs_err": err,
@@ -482,8 +528,8 @@ def host_total_prob(bundle, genome, n_reads):
 def phase_rescore(device, genome_len, n_reads, reps=10, launches=None):
     """Candgen and rescore on ``device`` against the native query and the
     port's CPU engine; score tolerance 2e-6 relative (float32 sums taken
-    in another order).  Then the stage split and the fused kernel against
-    its plain version on the rescore's own candidates."""
+    in another order).  Then the stage split and the exact extension
+    against its plain version on the rescore's own candidates."""
     import torch
 
     from gaml_tpu_torch.native import query_windows_batch
@@ -512,15 +558,15 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None):
     if launches is not None:
         launches.update(extend_cuda.LAUNCHES)
         check(device.type != "cuda" or (
-            launches["extend_fused"] == 1 and launches["swar_cost"] ==
-            launches["swar_cost_accept"] == 0),
-            f"the rescore did not make one fused launch: {launches}")
+            launches["extend_exact"] == 1 and launches["swar_cost"] ==
+            launches["swar_cost_accept"] == launches["dp_rows_exact"] == 0),
+            f"the rescore did not make one exact launch: {launches}")
     ms = timer(device, lambda: dev.rescore([genome], cap, **args), reps,
                host_clock=True)
 
     # the stage split: candgen (ending in its count's synchronisation),
     # the extension (CUDA events) and dedup + reduction (ending in the
-    # score's); then the fused kernel on these candidates
+    # score's); then the extension on these candidates
     def candgen():
         out = dev.gen.query([genome], cap)
         sync(device)
@@ -533,10 +579,10 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None):
              "dedup_reduce_ms": timer(device, lambda: dev.score(
                  c, ext, **args), reps, host_clock=True)}
     i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
-    fargs = (dev.ext.codes, c.codes, i32(c.seg_base[c.seg]),
+    fargs = (dev.ext.codes, dev.ext.lens, c.codes, i32(c.seg_base[c.seg]),
              i32(c.seg_len[c.seg]), i32(c.g0), i32(c.r0),
              i32(dev.gen.row_of[c.rid] + c.orient * dev.ext.n_rows))
-    fused = fused_against_plain(device, fargs, dev.ext.rmax, reps)
+    on_cands = exact_against_plain_two(device, fargs, dev.ext.rmax, reps)
     check(n_tot == ref[2] == cap, f"n_total {n_tot} vs cpu {ref[2]} "
           f"vs native {cap}")
     check(zeros == ref[1], f"zero_reads {zeros} vs cpu {ref[1]}")
@@ -553,7 +599,8 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None):
     if device.type == "cuda":
         res["peak_mem_mb"] = torch.cuda.max_memory_allocated() / 2**20
     print("  " + json.dumps(res), flush=True)
-    print("  fused on these candidates: " + json.dumps(fused), flush=True)
+    print("  extension on these candidates: " + json.dumps(on_cands),
+          flush=True)
     return res
 
 
@@ -726,7 +773,7 @@ def phase_anneal(device, d, world, iterations=1000, check_iterations=200,
     """The anneal on the aureus world written to ``d`` (``world``: its
     genome length, node count and seconds to write)."""
     res, diff = anneal_against_cpu_and_bfs(
-        device, d, iterations, check_iterations, timeout, ("extend_fused",))
+        device, d, iterations, check_iterations, timeout, ("extend_exact",))
     res = dict(zip(("genome", "nodes", "world_s"), world), **res)
     print("  " + json.dumps(res), flush=True)
     if diff is not None:
@@ -1171,26 +1218,96 @@ def exact_against_plain(device, args, reps):
             **staged_bound(args, True)}
 
 
-def phase_exact(device, n=131072, rmax=96, rescore_world=(400_000, 100_000),
-                reps=20):
-    """The exact kernel at phase 1's inputs (one launch, K3's shape) and
-    stacked with a second draw (2n, the two-direction launch of K4b's
-    static path); the K6 tool, also held against the plain version; and
-    the phase-2 rescore on the K3 route (GAML_SWAR_BACKWARD=0), whose
-    score and zero_reads must equal the default route's."""
+def ragged_draw(n: int, device, seed: int = 0, genome_len: int = 400_000,
+                n_reads: int = 100_000, lo: int = 60, hi: int = 100):
+    """A resident ragged read set and n candidates over one window (the
+    genome): reads of lo..hi bp sampled from a random genome with 1 %
+    substitutions, both orientations as rows; half the candidates on a
+    forward row at its true place, half anywhere; shuffled.  Returns the
+    extend_exact arguments (codes, lens, buf, base, glen, g0, r0, row; int32
+    per-candidate tensors) and the row bound hi - K."""
+    import torch
+
+    from gaml_tpu_torch.ops.extend import K, SENT_READ
+    from gaml_tpu_torch.ops.extend_device import reverse_complements
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len).astype(np.uint8)
+    lens = rng.integers(lo, hi + 1, n_reads)
+    starts = rng.integers(0, genome_len - hi + 1, n_reads)
+    mat = genome[starts[:, None] + np.arange(hi)]
+    err = rng.random(mat.shape) < 0.01
+    mat[err] = (mat[err] + rng.integers(1, 4, int(err.sum()))) % 4
+    mat[np.arange(hi) >= lens[:, None]] = SENT_READ
+    codes = np.concatenate([mat, reverse_complements(mat, lens)])
+    lens2 = np.concatenate([lens, lens])
+    half = n // 2
+    row = np.concatenate([rng.integers(0, n_reads, half),
+                          rng.integers(0, 2 * n_reads, n - half)])
+    r0 = rng.integers(0, lens2[row] - K + 1)
+    g0 = np.concatenate([starts[row[:half]] + r0[:half],
+                         rng.integers(0, genome_len - K + 1, n - half)])
+    perm = rng.permutation(n)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    i32 = np.int32
+    args = (t(codes), t(lens2.astype(i32)), t(genome), t(np.zeros(n, i32)),
+            t(np.full(n, genome_len, i32)), t(g0[perm].astype(i32)),
+            t(r0[perm].astype(i32)), t(row[perm].astype(i32)))
+    return args, hi - K
+
+
+def staged_from_resident(args, rmax: int):
+    """The staged dict (candidate-major views at rmax rows) of the
+    resident arguments' candidates, as ops.extend.stage_candidates builds
+    it."""
+    import torch
+
+    from gaml_tpu_torch.ops.extend import stage_views
+
+    codes, lens, buf, base, glen, g0, r0, row = args
+    i64 = [x.to(torch.int64) for x in (base, glen, g0, r0, row)]
+    views = stage_views(codes, lens.to(torch.int64)[i64[4]], buf, *i64,
+                        rmax)
+    st = {}
+    for sfx, (read, gwin, rlen, gl) in zip("fb", views):
+        st.update({"read_" + sfx: read.t().contiguous(),
+                   "gwin_" + sfx: gwin.t().contiguous(),
+                   "rlen_" + sfx: rlen, "glen_" + sfx: gl})
+    st.update(g0=g0, r0=r0, at_start=g0 == 0)
+    return st
+
+
+def phase_exact(device, n=131072, rmax=96, reps=20):
+    """The single-direction exact API (dp_rows_exact, the contract of
+    K3/K4a/K4b) at phase 1's inputs (one launch) and stacked with a second
+    draw (2n); the exact two-direction extension, the port of K3/K4a/K4b,
+    on a ragged draw of n candidates (ragged_draw: reads of 60-100 bp)
+    through its resident loader and, staged at rmax, its staged loader,
+    each against its plain version; and the K6 tool, also held against
+    the plain version."""
     import torch
 
     from gaml_tpu_torch.ops import extend_cuda as kc
-    from gaml_tpu_torch.ops.rescore_device import DeviceRescorer
     from gaml_tpu_torch.tools import swar_kernel_proto
 
     args = band_inputs(0, n, rmax, device)
     stacked = tuple(torch.cat([x, y], dim=-1).contiguous() for x, y in
                     zip(args, band_inputs(1, n, rmax, device)))
-    out = {"K3": exact_against_plain(device, args, reps),
-           "K4b": exact_against_plain(device, stacked, reps)}
-    check(out["K3"]["above_saturation"] > n // 8,
-          f"too few costs above K1/K2's saturation: {out['K3']}")
+    out = {"dp_rows_exact": exact_against_plain(device, args, reps),
+           "dp_rows_exact_stacked": exact_against_plain(device, stacked,
+                                                        reps)}
+    check(out["dp_rows_exact"]["above_saturation"] > n // 8,
+          f"too few costs above K1/K2's saturation: {out['dp_rows_exact']}")
+    res_args, res_rmax = ragged_draw(n, device)
+    st = staged_from_resident(res_args, rmax)
+    out["exact_resident"] = exact_against_plain_two(device, res_args,
+                                                    res_rmax, reps)
+    out["exact_staged"] = exact_against_plain_two(device, st, None, reps)
+    out["exact_resident"]["read_lens"] = [int(res_args[1].min()),
+                                          int(res_args[1].max())]
 
     launches = reset_launches()
     k6 = swar_kernel_proto.run(device, n, rmax, reps)
@@ -1204,35 +1321,6 @@ def phase_exact(device, n=131072, rmax=96, rescore_world=(400_000, 100_000),
                  "launches": k6_launches, "exact_ms": k6["exact_ms"],
                  **staged_bound(args, False)}
     check(out["K6"]["max_abs_err"] == 0, f"K6 vs plain: {out['K6']}")
-
-    genome, reads = make_world(*rescore_world)
-    dev = DeviceRescorer(make_bundle(reads), device=device)
-    kw = dict(log_match=float(np.log(MATCH)),
-              log_mismatch=float(np.log(MISMATCH)),
-              total_len=len(genome), min_prob_per_base=MPB,
-              min_prob_start=MPS)
-    cap = len(genome)
-    default = dev.rescore([genome], cap, **kw)
-    default_ms = timer(device, lambda: dev.rescore([genome], cap, **kw),
-                       reps // 2, host_clock=True)
-    os.environ["GAML_SWAR_BACKWARD"] = "0"
-    try:
-        launches = reset_launches()
-        k3 = dev.rescore([genome], cap, **kw)
-        out["K3"]["launches"] = launches["dp_rows_exact"]
-        check(launches["swar_cost_accept"] == launches["extend_fused"] == 0
-              and (device.type != "cuda" or (launches["dp_rows_exact"] > 0
-                                             and launches["swar_cost"] > 0)),
-              f"the K3 route did not run K1 + dp_rows_exact: {launches}")
-        k3_ms = timer(device, lambda: dev.rescore([genome], cap, **kw),
-                      reps // 2, host_clock=True)
-    finally:
-        del os.environ["GAML_SWAR_BACKWARD"]
-    check(k3[:2] == default[:2] and np.isfinite(k3[0]),
-          f"K3 route (score, zero_reads, n) {k3} vs default {default}")
-    out["rescore"] = {"candidates": k3[2], "score": k3[0],
-                      "zero_reads": k3[1], "k3_route_ms": k3_ms,
-                      "default_ms": default_ms}
     for k, v in out.items():
         print(f"  {k}: " + json.dumps(v), flush=True)
     return out
@@ -1263,12 +1351,50 @@ def close(a, b, rel):
     return np.isfinite(a) and abs(a - b) <= rel * abs(b)
 
 
+def five_pair_world(device, total_len=2_800_000, mate=150, im=180, istd=20):
+    """Five pairs of 2 x 150 bp mates (insert 180 +- 20) on a 2.8 Mb
+    assembly, with (errors per mate, insert offset in sd) of (1, 1), (3,
+    8), (3, 12), (6, 10), (6, 14): p / (2 total_len) of the last three
+    lies below float32's range (2^-149), their logs above the floor of
+    -220 (ROADMAP C12).  Returns the paired_score_device arguments on
+    ``device`` and the float64 host's (score, zero_reads)
+    (scoring.reduce.get_total_prob)."""
+    import torch
+
+    from gaml_tpu_torch.core.logprob import gaussian_pdf
+    from gaml_tpu_torch.scoring.reduce import get_total_prob
+
+    pairs = ((1, 1), (3, 8), (3, 12), (6, 10), (6, 14))
+    n = len(pairs)
+    pos1 = np.array([[1000 + 5000 * i] for i in range(n)], np.int32)
+    ins = np.array([im + off * istd for _e, off in pairs])
+    pos2 = pos1 + (ins - mate)[:, None].astype(np.int32)
+    ed = np.array([[e] for e, _off in pairs], np.int32)
+    probs = np.array([(MISMATCH ** e * MATCH ** (mate - e)) ** 2
+                      * float(gaussian_pdf(x, im, istd))
+                      for (e, _off), x in zip(pairs, ins)])
+    host = get_total_prob(probs, total_len, MPB, MPS, np.full(n, 2 * mate))
+    arrays = (pos1, ed, np.zeros_like(pos1), np.full(n, mate, np.int32),
+              pos2, ed, np.ones_like(pos1), np.full(n, mate, np.int32))
+    args = [torch.as_tensor(x, device=device) for x in arrays]
+    args += [float(np.log(MATCH)), float(np.log(MISMATCH)), float(im),
+             float(istd), total_len, MPB, MPS]
+    return args, host
+
+
 def phase_models(device, d, world=(2_800_000, 300_000), reps=5):
     """SingleEndModel on ``device`` over host candidates of phase 3's
     world, against the model on the CPU and DeviceRescorer.rescore on the
-    same window (score rel 2e-6, zero_reads equal); PairedEndModel on the
-    frag library of the world in ``d`` over the start walks, against the
-    float64 host paired scorer (rel 1e-5, zero_reads equal)."""
+    same window (score rel 2e-6, zero_reads equal), with its forward step
+    on the staged dict (the same score within 1e-9) split with CUDA
+    events into staging, launch, dedup and reduction; the exact extension
+    on these candidates against its plain version, staged (the forward
+    step's) and resident (score_candidates'), beside the stacked
+    single-direction launch the forward step made before;
+    PairedEndModel on the frag library of the world in ``d`` over the
+    start walks, against the float64 host paired scorer (rel 1e-5,
+    zero_reads equal); and the paired reduction on five_pair_world
+    against the float64 host (rel 1e-9, zero_reads equal)."""
     import torch
 
     from gaml_tpu_torch.cli import starting_paths_from_config
@@ -1277,7 +1403,10 @@ def phase_models(device, d, world=(2_800_000, 300_000), reps=5):
     from gaml_tpu_torch.scoring.paired import calc_score_for_paths_paired
     from gaml_tpu_torch.scoring.readset import ReadSet
     from gaml_tpu_torch.models import PairedEndModel, SingleEndModel
-    from gaml_tpu_torch.ops.extend import stage_candidates
+    from gaml_tpu_torch.ops import extend_cuda as kc
+    from gaml_tpu_torch.ops import score as tscore
+    from gaml_tpu_torch.ops.extend import K, read_matrix, stage_candidates
+    from gaml_tpu_torch.ops.pair import paired_score_device
     from gaml_tpu_torch.ops.rescore_device import DeviceRescorer
 
     genome_len, n_reads = world
@@ -1287,13 +1416,32 @@ def phase_models(device, d, world=(2_800_000, 300_000), reps=5):
     cands = host_candidates(bundle, reads, genome)
     t_cands = time.perf_counter() - t0
     lens = [READ_LEN] * n_reads
+    lens_t = torch.full((n_reads,), READ_LEN, dtype=torch.int32,
+                        device=device)
     model = SingleEndModel(MATCH, MISMATCH, MPB, MPS, device=device)
+    g0s = [c.genome_pos for c, _ in cands]
+    r0s = [c.read_pos for c, _ in cands]
+    rds = [r for _, r in cands]
+    rids = [c.read_id for c, _ in cands]
+
+    def stage():
+        return stage_candidates(genome, g0s, r0s, rds, read_ids=rids,
+                                device=device)
+
+    st = stage()
     launches = reset_launches()
     score, zeros, _ = model.score_candidates(genome, cands, n_reads, lens,
                                              genome_len)
-    model_launches = launches["dp_rows_exact"]
-    check(device.type != "cuda" or model_launches > 0,
-          f"the model did not launch dp_rows_exact: {launches}")
+    fwd = model(st, lens_t, genome_len, n_reads)
+    model_launches = launches["extend_exact"] + \
+        launches["extend_exact_staged"]
+    check(device.type != "cuda" or (
+        launches["extend_exact"] == launches["extend_exact_staged"] == 1
+        and launches["dp_rows_exact"] == 0),
+        f"the model did not run the exact extension: {launches}")
+    check(int(fwd[1]) == zeros and close(float(fwd[0]), score, 1e-9),
+          f"forward step ({float(fwd[0])}, {int(fwd[1])}) vs "
+          f"score_candidates ({score}, {zeros})")
     cpu = SingleEndModel(MATCH, MISMATCH, MPB, MPS,
                          device="cpu").score_candidates(
         genome, cands, n_reads, lens, genome_len)
@@ -1306,29 +1454,72 @@ def phase_models(device, d, world=(2_800_000, 300_000), reps=5):
         check(zeros == z_ref and close(score, s_ref, 2e-6),
               f"model on {device} ({score}, {zeros}) vs {name} "
               f"({s_ref}, {z_ref})")
-    st = stage_candidates(
-        genome, [c.genome_pos for c, _ in cands],
-        [c.read_pos for c, _ in cands], [r for _, r in cands],
-        read_ids=[c.read_id for c, _ in cands], device=device)
-    lens_t = torch.full((n_reads,), READ_LEN, dtype=torch.int32,
-                        device=device)
     fwd_ms = timer(device, lambda: float(model(st, lens_t, genome_len,
                                                n_reads)[0]),
                    reps, host_clock=True)
-    # the forward's stacked launch, alone, at this shape (K4a's entry)
+    # the forward step's stages, each timed alone with CUDA events
+    sd = {k: st[k] for k in kc.STAGED}
+    ok, errs, begin = kc.extend_exact_staged(sd)
+    good = ok & st["valid"]
+
+    def dedup():
+        return tscore.dedup_sort_payload(st["read_id"], begin, good,
+                                         (errs, st["read_len"]))
+
+    rid_s, keep, (errs_s, rlen_s) = dedup()
+
+    def reduction():
+        p = tscore.alignment_probs(errs_s, rlen_s, float(np.log(MATCH)),
+                                   float(np.log(MISMATCH)))
+        rp = torch.zeros(n_reads, dtype=torch.float64, device=device)
+        rp.index_add_(0, rid_s[keep].to(torch.int64), p[keep])
+        return tscore.reduce_read_probs(rp, lens_t, genome_len, MPB, MPS)
+
+    split = {"staging_ms": timer(device, stage, reps),
+             "launch_ms": timer(device, lambda: kc.extend_exact_staged(sd),
+                                reps),
+             "dedup_ms": timer(device, dedup, reps),
+             "reduction_ms": timer(device, reduction, reps)}
+    # the exact extension at this shape: staged (the forward step's) and
+    # resident (score_candidates'), beside the stacked single-direction
+    # launch of both directions that the forward step made before
+    k4a = exact_against_plain_two(device, sd, None, reps)
     views = [torch.cat([st[f"{k}_f"].t(), st[f"{k}_b"].t()], dim=-1)
              .contiguous() for k in ("read", "gwin")]
     views += [torch.cat([st[f"{k}_f"], st[f"{k}_b"]]) for k in
               ("rlen", "glen")]
-    k4a = exact_against_plain(device, views, reps)
+    k4a["stacked"] = exact_against_plain(device, views, reps)
+    mat, rl = read_matrix(rds)
+    i32 = lambda x: torch.as_tensor(np.asarray(x, np.int32),  # noqa: E731
+                                    device=device)
+    n_c = len(cands)
+    res_args = (torch.as_tensor(mat, device=device), i32(rl),
+                torch.as_tensor(genome, device=device), i32(np.zeros(n_c)),
+                i32(np.full(n_c, genome_len)), i32(g0s), i32(r0s),
+                i32(np.arange(n_c)))
+    res_rmax = max(mat.shape[1] - K, 1)
+    k4a["resident"] = exact_against_plain_two(device, res_args, res_rmax,
+                                              reps)
     k4a["launches"] = model_launches
     single = {"genome": genome_len, "reads": n_reads,
               "candidates": len(cands), "host_candgen_s": t_cands,
               "score": score, "zero_reads": zeros,
               "rel_vs_cpu": abs(score - cpu[0]) / abs(cpu[0]),
               "rel_vs_rescore": abs(score - resc[0]) / abs(resc[0]),
-              "forward_ms": fwd_ms, "launches": model_launches}
+              "forward_ms": fwd_ms, **split, "launches": model_launches}
     print("  single " + json.dumps(single), flush=True)
+    print("  exact extension at this shape " + json.dumps(k4a), flush=True)
+
+    args, (h_score, h_zeros) = five_pair_world(device)
+    c12_score, c12_zeros, c12_probs = paired_score_device(*args)
+    c12 = {"score": float(c12_score), "zero_reads": int(c12_zeros),
+           "host_score": h_score, "host_zero_reads": h_zeros,
+           "rel_vs_host": abs(float(c12_score) - h_score) / abs(h_score),
+           "probs_dtype": str(c12_probs.dtype)}
+    check(c12["zero_reads"] == h_zeros and close(c12["score"], h_score,
+                                                  1e-9),
+          f"C12: paired reduction {c12} against the float64 host")
+    print("  c12 " + json.dumps(c12), flush=True)
 
     graph = load_lastgraph(os.path.join(d, "LastGraph"))
     walks = starting_paths_from_config({}, graph,
@@ -1362,7 +1553,7 @@ def phase_models(device, d, world=(2_800_000, 300_000), reps=5):
               "host_scorer_s": host_s, "model_s": paired_s,
               "k_cap": max(len(p) for rs in mates for p in rs.positions)}
     print("  paired " + json.dumps(paired), flush=True)
-    return {"single": single, "paired": paired, "K4a": k4a}
+    return {"single": single, "paired": paired, "K4a": k4a, "c12": c12}
 
 
 # ----------------------------------------------------------------- phase 10
@@ -1382,37 +1573,112 @@ def trim_fastq(src, dst, rng, share=0.2, lo=60, hi=99):
     return int(cut.sum())
 
 
+def mixed_batch_split(device, d, n_windows=64, reps=5):
+    """The host split of one no-bundle window batch: the trimmed frag
+    library's first mate file as a device read set (no native bundle),
+    and n_windows windows of three consecutive chain nodes aligned in one
+    align_subpaths_batch call, its stages timed by wrapping them (medians
+    over warm batches): gen_candidates (the host index, window by
+    window), the extension (DeviceExtender.run on the resident ragged
+    read set: window upload, one exact launch, and its closure: results
+    back) and window_columns (host dedup); ``other_ms`` is the rest
+    (spelling the windows, gathering the candidates' arrays)."""
+    from gaml_tpu_torch.align import aligner as al_mod
+    from gaml_tpu_torch.core.io import load_lastgraph
+    from gaml_tpu_torch.ops import extend_device
+    from gaml_tpu_torch.scoring.readset import ReadSet
+
+    graph = load_lastgraph(os.path.join(d, "LastGraph"))
+    rs = ReadSet(os.path.join(d, "split_t1"), os.path.join(d, "t1.fq"),
+                 MATCH, MISMATCH, backend="device", device=device)
+    rs.preprocess_reads()
+    rs.prepare_read_index()
+    al = rs.aligner
+    check(getattr(al, "native_bundle", None) is None,
+          "the trimmed read set has a native bundle")
+    windows = [(2 * i, 2 * i + 2, 2 * i + 4) for i in range(n_windows)]
+    spent = {}
+    real = {"candgen": (al_mod, "gen_candidates"),
+            "extend": (extend_device.DeviceExtender, "run"),
+            "columns": (al_mod, "window_columns")}
+    saved = {k: getattr(mod, name) for k, (mod, name) in real.items()}
+
+    def timed(key, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+            return timed(key, out) if callable(out) else out
+        return wrapper
+
+    for key, (mod, name) in real.items():
+        setattr(mod, name, timed(key, saved[key]))
+    rows = []
+    try:
+        al.align_subpaths_batch(graph, windows)  # builds the read set
+        for _ in range(reps):
+            spent.clear()
+            n0 = al.device_candidates
+            t0 = time.perf_counter()
+            al.align_subpaths_batch(graph, windows)
+            total = time.perf_counter() - t0
+            rows.append({"total_ms": total * 1e3,
+                         **{f"{k}_ms": v * 1e3 for k, v in spent.items()},
+                         "other_ms": (total - sum(spent.values())) * 1e3,
+                         "candidates": al.device_candidates - n0})
+    finally:
+        for key, (mod, name) in real.items():
+            setattr(mod, name, saved[key])
+    res = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+    res.update(windows=n_windows, reads=rs.reads_num)
+    return res
+
+
 def phase_mixed_anneal(device, d, iterations=200, check_iterations=50,
                        timeout=450):
     """The phase-4 world with its frag library quality-trimmed: 20 % of
     each mate file's reads cut to 60-99 bp (own generator, seed 29).  The
-    frag read sets get no native bundle, so their windows run through
-    batch_extend_multi and the exact kernel; the advice library keeps the
-    fused kernel.  --device cuda against --device cpu (equal traces over
-    the cpu run), reported against --backend bfs."""
+    frag read sets get no native bundle, so their windows take host
+    candidates and run through the exact extension on a resident ragged
+    read set (extend_exact, never dp_rows_exact); the advice library
+    keeps the device candgen (the same exact extension on its uniform
+    read set).  --device cuda against --device cpu (equal
+    traces over the cpu run), reported against --backend bfs; then the
+    host split of one such batch (mixed_batch_split)."""
     rng = np.random.default_rng(29)
     trimmed = [trim_fastq(os.path.join(d, f"f{k}.fq"),
                           os.path.join(d, f"t{k}.fq"), rng) for k in (1, 2)]
     res, diff = anneal_against_cpu_and_bfs(
         device, d, iterations, check_iterations, timeout,
-        ("extend_fused", "dp_rows_exact"), frag="t",
+        ("extend_exact",), frag="t",
         tag="mixed_")
+    check(res["launches"]["dp_rows_exact"] == 0,
+          f"the mixed anneal launched dp_rows_exact: {res['launches']}")
     res["trimmed_reads"] = trimmed
     print("  " + json.dumps(res), flush=True)
     if diff is not None:
         print(f"  {device}: {diff[1]}\n  bfs:  {diff[2]}", flush=True)
+    res["batch_split"] = mixed_batch_split(device, d)
+    print("  no-bundle batch " + json.dumps(res["batch_split"]), flush=True)
     return res
 
 
 def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed):
     """{"kernels": [...]}: one entry per TPU kernel with the numbers of
-    the phases that measured it.  Launches come from the runs of the main
-    paths (counts reset just before each): K1/K2 (both served by the
-    fused extension) phase 4's anneal, K3 the K3-route rescore of phase
-    8, K4a/K4b the models of phase 9 plus phase 10's anneal (one kernel
-    serves both), K5 phase 7, K6 its tool.  The K1/K2 entries carry the
-    fused kernel's phase-1 numbers and, beside them, the staged route it
-    replaced on the same candidates.  No PyTorch call computes a banded
+    the phases that measured it.  K1-K4 are all served by one kernel,
+    the exact two-direction extension.  Launches come from the runs of
+    the main paths (counts reset just before each): K1/K2/K3 phase 4's
+    anneal (uniform read sets, the resident loader: K1 + K2's function,
+    and K3's, the JAX package's route under GAML_SWAR_BACKWARD=0),
+    K4a/K4b the models of phase 9 plus phase 10's anneal, K5 phase 7, K6
+    its tool.  The K1/K2 entries carry the resident loader's phase-1
+    numbers on the rescore's world and, beside them, the staged route it
+    replaced on the same candidates.  K3's entry is the resident loader
+    on phase 8's ragged draw, K4b's the staged loader on that draw at rmax 96
+    (n % 1024 == 0, K4b's route on the TPU), K4a's its staged loader at
+    phase 9's model forward, each with its bound counted both ways (the
+    share uses the algorithm's count) and the single-direction stacked
+    launch the port made before beside it.  No PyTorch call computes a banded
     min-plus or log-space forward DP, so library_ms is null throughout.
     ``card`` gives each band kernel's registers, spills and DPX
     instruction count, and K5's registers, spills and MUFU count per
@@ -1420,27 +1686,45 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed):
     version; the float64 one, the twin's and the adversarial batch's
     stand beside it, the largest over both widths."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    fused = kern["extend_fused"]
-    k1k2 = dict({k: fused[k] for k in keys},
-                staged_route_ms=fused["staged_route_ms"],
-                stage_views_ms=fused["stage_views_ms"],
-                launches=anneal["launches"]["extend_fused"])
-    k4 = mixed["launches"]["dp_rows_exact"] + models["K4a"]["launches"]
-    kern = {"K1": dict(k1k2, staged_entry_ms=fused["staged_k1_ms"],
+    more = ("share", "rows", "lane_ops", "bytes", "bound_ms_stacked_count")
+    res = kern["extend_exact"]
+    uniform = anneal["launches"]["extend_exact"]
+    k1k2 = dict({k: res[k] for k in keys + more},
+                staged_route_ms=res["staged_route_ms"],
+                stage_views_ms=res["stage_views_ms"], launches=uniform,
+                loader="resident")
+    k4 = mixed["launches"]["extend_exact"] + models["K4a"]["launches"]
+
+    def exact_entry(res, launches, **extra):
+        return dict({k: res[k] for k in keys + more}, launches=launches,
+                    **extra)
+
+    k4a = models["K4a"]
+    kern = {"K1": dict(k1k2, staged_entry_ms=res["staged_k1_ms"],
                        staged_entry_launches=anneal["launches"]["swar_cost"]),
-            "K2": dict(k1k2, staged_entry_ms=fused["staged_k2_ms"],
+            "K2": dict(k1k2, staged_entry_ms=res["staged_k2_ms"],
                        staged_entry_launches=anneal["launches"][
                            "swar_cost_accept"]),
-            "K3": exact["K3"],
-            "K4a": dict(models["K4a"], launches=k4),
-            "K4b": dict(exact["K4b"], launches=k4),
+            "K3": exact_entry(
+                exact["exact_resident"], uniform,
+                loader="resident", read_lens=exact["exact_resident"][
+                    "read_lens"], dp_rows_exact_ms=exact["dp_rows_exact"][
+                    "ms"]),
+            "K4a": exact_entry(
+                k4a, k4, loader="staged", stacked_ms=k4a["stacked"]["ms"],
+                stacked_bound_ms=k4a["stacked"]["bound_ms"],
+                resident_ms=k4a["resident"]["ms"],
+                resident_bound_ms=k4a["resident"]["bound_ms"]),
+            "K4b": exact_entry(
+                exact["exact_staged"], k4, loader="staged",
+                stacked_ms=exact["dp_rows_exact_stacked"]["ms"]),
             "K6": exact["K6"]}
     kern["K5"] = {
         k: (fwd[64][k] if k != "max_abs_err" else
             max(fwd[64][k], fwd[128][k])) for k in keys}
-    for tpu, entry in (("K1", "extend_fused"), ("K2", "extend_fused"),
-                       ("K3", "dp_rows_exact"), ("K4a", "dp_rows_exact"),
-                       ("K4b", "dp_rows_exact"), ("K6", "swar_cost")):
+    for tpu, entry in (("K1", "extend_exact"), ("K2", "extend_exact"),
+                       ("K3", "extend_exact"), ("K4a", "extend_exact_staged"),
+                       ("K4b", "extend_exact_staged"), ("K6", "swar_cost")):
         kern[tpu] = dict(kern[tpu], compiled=card[entry])
     for k in ("max_abs_err_f64", "max_abs_err_twin",
               "adversarial_max_abs_err", "adversarial_max_abs_err_f64",

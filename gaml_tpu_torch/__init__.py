@@ -3,7 +3,7 @@
 The port stands on its own: its host layers (graph, index, the native C++
 aligner in ``csrc/gaml_native.cc``, scorers, moves, the annealer, config
 and CLI) are its own copies of the JAX package's, and its device paths
-are torch: the short-read rescore (candidate generation, the fused
+are torch: the short-read rescore (candidate generation, the exact
 two-direction extension kernel, first-wins dedup, the GetTotalProb
 reduction), the device likelihood models and the aligner's batch path for
 reads of mixed lengths, and the PacBio banded forward DP.  Every Pallas

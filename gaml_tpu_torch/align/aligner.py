@@ -17,13 +17,15 @@ port's torch ops on ``device`` (the CUDA kernels on a CUDA device, their
 plain versions on the CPU):
 
 - with a native bundle (uniform read lengths), candidate generation and
-  the fused two-direction extension run in gaml_tpu_torch.ops, one
+  the exact two-direction extension run in gaml_tpu_torch.ops, one
   batch of windows at a time; a batch whose candidate count exceeds the
   cap is redone on the device with the cap raised to the count;
 - without one (mixed read lengths, e.g. quality-trimmed libraries),
   candidates come from the host index window by window, and the whole
-  batch is extended in one batch_extend_multi call (one exact launch of
-  both directions).
+  batch is extended on a resident ragged DeviceExtender of the read set
+  (built once, DeviceExtender.run): the batch ships its window bytes and
+  per-candidate (window, g0, r0, row, orient), and the exact extension
+  runs both directions in one launch.
 
 The device modules (and torch) load on the first device call, so the bfs
 backend runs without them.
@@ -327,35 +329,56 @@ class SubpathAligner:
         rl = self.index.read_len
         out: List[AlignmentColumns] = [_EMPTY_COLUMNS_ALIGNER] * len(paths)
         seqs, offsets, keep = [], [], []
-        seq_idx, g0s, r0s, reads, rid, orient = [], [], [], [], [], []
+        seq_idx, g0s, r0s, rid, orient = [], [], [], [], []
         for si, path in enumerate(paths):
             seq, offset = spell_subpath(graph, path)
             if len(seq) < rl or rl == 0:
                 continue
             cands = gen_candidates(self.index, self.read_seqs, seq,
                                    self._read_cache)
-            for c, read in cands:
-                seq_idx.append(len(seqs))
+            seq_idx += [len(seqs)] * len(cands)
+            for c, _read in cands:
                 g0s.append(c.genome_pos)
                 r0s.append(c.read_pos)
-                reads.append(read)
                 rid.append(c.read_id)
                 orient.append(c.orientation)
             keep.append(si)
             seqs.append(seq)
             offsets.append(offset)
-        if reads:
-            from ..ops.extend_device import batch_extend_multi
+        if not rid:
+            return (lambda: out) if defer else out
+        from ..ops.extend import window_buffer
 
-            ok, errs, begin = batch_extend_multi(seqs, seq_idx, g0s, r0s,
-                                                 reads, self.device)
+        ext, row_of = self.ensure_ragged_extender()
+        rid, orient = np.asarray(rid), np.asarray(orient)
+        fetch = ext.run(*window_buffer(seqs), seq_idx, g0s, r0s, row_of[rid],
+                        orient, defer=True)
+
+        def postprocess():
+            ok, errs, begin = fetch()
             self.device_batches += 1
-            self.device_candidates += len(reads)
+            self.device_candidates += len(rid)
             for si, cols in zip(keep, window_columns(
-                    ok, errs, begin, np.asarray(rid), np.asarray(orient),
-                    np.asarray(seq_idx), offsets)):
+                    ok, errs, begin, rid, orient, np.asarray(seq_idx),
+                    offsets)):
                 out[si] = cols
-        return (lambda: out) if defer else out
+            return out
+
+        return postprocess if defer else postprocess()
+
+    def ensure_ragged_extender(self):
+        """The resident extension engine of a read set without a native
+        bundle (reads of any lengths), built once from ``read_seqs``, and
+        the row of each read id (-1 for none)."""
+        if getattr(self, "_ragged_extender", None) is None:
+            from ..ops.extend_device import DeviceExtender
+
+            rids = sorted(self.read_seqs)
+            row_of = np.full(max(rids, default=-1) + 1, -1, dtype=np.int64)
+            row_of[rids] = np.arange(len(rids))
+            self._ragged_extender = (DeviceExtender.from_reads(
+                [self.read_seqs[r] for r in rids], self.device), row_of)
+        return self._ragged_extender
 
     def _align_subpaths_batch_native(self, graph, paths, bundle,
                                      defer: bool = False):

@@ -1,5 +1,5 @@
-// Banded short-read extension DP for Hopper (sm_90a): kernels K1 to K4 and
-// the fused two-direction extension.
+// Banded short-read extension DP for Hopper (sm_90a): kernels K1 to K4
+// and the exact two-direction extension.
 //
 // Replaces the TPU kernels of gaml_tpu/ops/extend_pallas.py:
 //   K1  swar_cost_pallas         (_swar_kernel_dyn, forward direction, cost)
@@ -10,12 +10,21 @@
 //   K4a dp_rows_pallas           (_dp_kernel: exact cost and offset over all
 //                                 rmax rows, sublane band)
 //   K4b dp_rows_pallas_reg       (_dp_kernel_reg: K4a in a register band)
-// K3, K4a and K4b differ only in TPU layout and row bound, so they share
-// one entry point here, gaml_dp_rows_exact.  tools/swar_kernel_proto.py's
-// prototype (K6) computes K1's function; its port runs gaml_swar_cost.
-// gaml_extend_fused runs K2's function (backward) and then K1's (forward)
-// for each candidate of a resident read set, with the gathers and the
-// epilogue inside: it is what the short-read rescore launches for K1 + K2.
+// K3, K4a and K4b differ only in TPU layout and row bound; what their
+// callers compute with them is both directions of a seed candidate and the
+// epilogue (gaml_tpu/ops/extend_pallas.py::extend_kernel_pallas,
+// gaml_tpu/ops/score.py), and that is one entry here in two loaders:
+// gaml_extend_exact (a resident read set of any read lengths: the
+// short-read rescore, the models' host candidates, the batch helpers, the
+// mixed-length aligner) and gaml_extend_exact_staged (the staged dict of
+// the single-end model's forward step, read where it lies).  The rescore's
+// K2 (backward) and K1 (forward) are the same two directions with the
+// offset read from the backward one and the costs saturated at 7, so
+// gaml_extend_exact serves them too.  gaml_swar_cost, gaml_swar_cost_accept
+// and gaml_dp_rows_exact keep the single-direction contracts of the TPU
+// kernels as an API (the staged route's yardstick; gaml_swar_cost runs the
+// K6 prototype of tools/swar_kernel_proto.py, which computes K1's
+// function).
 //
 // All compute the exact recurrence of gaml_tpu.ops.extend._dp_rows (its
 // torch twin is gaml_tpu_torch.ops.extend.dp_rows): a min-plus DP over
@@ -41,12 +50,13 @@
 // each, the selects one LOP3; every lane test (char match, genome bound,
 // the accept offset's tie-break) is one add and one byte permute that
 // spreads the sign bit of each lane (the emulated __vcmpeq2 cost several
-// times that).  The staged entries (K1, K2, exact) read
+// times that).  The single-direction entries (K1, K2, dp_rows_exact) read
 // candidate-minor uint8 inputs (read_t [rmax, n], gwin_t [rmax + 2*PAD,
-// n]); the fused entry reads the resident read codes [rows, L] and the
-// window buffer directly, with a bounds test in place of the staged
-// sentinels (no clamped index, ROADMAP C1).  A rolling window of the 7
-// genome chars needs one new byte per row.
+// n]).  The two-direction entries read the resident read codes [rows, L]
+// and the window buffer directly, with a bounds test in place of the
+// staged sentinels (no clamped index, ROADMAP C1), or each candidate's own
+// contiguous rows of a staged dict's candidate-major views.  A rolling
+// window of the 7 genome chars needs one new byte per row.
 //
 // What bounds it on an H100: integer work on the dependency chain of the
 // row recurrence, serial over rows: 12 operations per 16-bit lane and
@@ -57,17 +67,22 @@
 // these counts beside its time, and checks that the SASS of every band
 // kernel holds DPX instructions (VIADDMNMX.S16x2) and no spill.
 //
-// The fused entry (gaml_extend_fused) is what the short-read rescore
-// launches: one launch per batch, where the staged route made about 20
-// torch launches of staging (with a padded copy of the window buffer)
-// and two kernel launches, and cost about seven times the fused kernel
-// on the card.  One thread runs both directions of its candidate, L - K
-// rows in all, so the threads of a warp of a uniform read set stay
-// together (each staged kernel ran about rmax rows per warp for about
-// rmax / 2 of use).  Each row's read code and rolled-in genome byte are
-// loaded one row ahead, per byte through L1; a warp-wide copy of the
-// read rows and genome views into shared memory first was slower on the
-// H100 (PERF.md).
+// The two-direction entries share one loop (extend_one): one thread runs
+// both directions of its candidate, rows_b + rows_f rows in all, with the
+// gathers and the epilogue inside: one launch per batch, where the staged
+// route made about 20 torch launches of staging and two kernel launches,
+// and cost about seven times as much on the card.  Each row's read code
+// and rolled-in genome byte are loaded one row ahead, per byte through L1;
+// a warp-wide copy of the read rows and genome views into shared memory
+// first was slower on the H100 (PERF.md).  Read lengths may be ragged and
+// seed offsets differ, so a warp would run the most rows of its lanes in
+// each direction.  Each launch first buckets its candidates by (rows_b,
+// rows_f) with a counting sort on the card (three small kernels: torch's
+// sort cost more than the ordering saved), so that the lanes of a warp run
+// as many rows and switch from the backward to the forward direction
+// together, and the forward rows then skip the accept offset's half of the
+// row's work.  Ordered so, this form beat the unordered one with the
+// offset on every row, on uniform and on ragged reads (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -275,38 +290,85 @@ band_dp_kernel(const uint8_t* __restrict__ read_t,
 __device__ __forceinline__ uint32_t gen_backward(const uint8_t* gw, int g,
                                                  int j) {
   const int p = g + kPad - 1 - j;
-  return j >= kPad && p >= 0 ? gw[p] : kSentGen;
+  return j >= kPad && p >= 0 ? __ldg(gw + p) : kSentGen;
 }
 
 __device__ __forceinline__ uint32_t gen_forward(const uint8_t* gw, int g,
                                                 int gl, int j) {
   const int p = g + kK - kPad + j;
-  return p >= 0 && p < gl ? gw[p] : kSentGen;
+  return p >= 0 && p < gl ? __ldg(gw + p) : kSentGen;
 }
 
-// Both directions of one candidate and the epilogue.  ``rd(j)`` is byte j
-// of its read row, ``gb(j)``/``gf(j)`` the backward/forward genome views.
-// One loop runs the backward direction's rows (K2's function: the
-// reversed read prefix against the reversed genome prefix, cost and
-// accept offset) and then the forward direction's (K1's: the read suffix
-// after the seed against the genome from the seed end), so a thread makes
-// L - K iterations whatever its seed's offset r0 and the threads of a
-// warp stay together.  The forward rows compute an accept offset nobody
-// reads: seed offsets differ across a warp, so in almost every iteration
-// some of its lanes are still in their backward rows, and a cost-only
-// branch (or skipping the offset's part of the row) would leave the warp
-// running both forms.  Both were slower on the H100 in a probe of
-// variants of this file (PERF.md).
-template <class Rd, class Gb, class Gf>
-__device__ __forceinline__ void extend_one(int L, int rmax, int gl, int g,
-                                           int s, Rd rd, Gb gb, Gf gf,
+// One candidate of a resident read set: its read row ``rd`` of length L,
+// its window ``gw`` of length gl in the window buffer, its seed at g in
+// the window and s in the read.  The backward direction is the reversed
+// read prefix against the reversed genome prefix (empty for a seed at
+// genome position 0), the forward one the read suffix after the seed
+// against the genome from the seed end.
+struct ResidentCand {
+  const uint8_t* rd;
+  const uint8_t* gw;
+  int g, s, gl, L;
+  __device__ int rl_b() const { return g > 0 ? s : 0; }
+  __device__ int gl_b() const { return g; }
+  __device__ int rl_f() const { return L - s - kK; }
+  __device__ int gl_f() const { return gl - g - kK; }
+  __device__ bool at_start() const { return g == 0; }
+  __device__ uint32_t rb(int r) const { return __ldg(rd + s - 1 - r); }
+  __device__ uint32_t rf(int r) const { return __ldg(rd + s + kK + r); }
+  __device__ uint32_t gb(int j) const { return gen_backward(gw, g, j); }
+  __device__ uint32_t gf(int j) const { return gen_forward(gw, g, gl, j); }
+};
+
+// One candidate of a staged dict, read where it lies: its rows of the
+// candidate-major views read_b/read_f [nb, rmax] (row r of the direction
+// at byte r) and gwin_b/gwin_f [nb, rmax + 2*PAD] (window index j at
+// byte j), its direction lengths, seed and genome-start flag.
+struct StagedCand {
+  const uint8_t* rdb;
+  const uint8_t* rdf;
+  const uint8_t* gwb;
+  const uint8_t* gwf;
+  int rlb, glb, rlf, glf, g, s;
+  bool start;
+  __device__ int rl_b() const { return rlb; }
+  __device__ int gl_b() const { return glb; }
+  __device__ int rl_f() const { return rlf; }
+  __device__ int gl_f() const { return glf; }
+  __device__ bool at_start() const { return start; }
+  __device__ uint32_t rb(int r) const { return __ldg(rdb + r); }
+  __device__ uint32_t rf(int r) const { return __ldg(rdf + r); }
+  __device__ uint32_t gb(int j) const { return __ldg(gwb + j); }
+  __device__ uint32_t gf(int j) const { return __ldg(gwf + j); }
+};
+
+// Both directions of candidate ``c`` of either loader (ResidentCand,
+// StagedCand) and the epilogue.  ``c.rb(r)``/``c.rf(r)`` are the read codes
+// of row r of the backward/forward direction, ``c.gb(j)``/``c.gf(j)`` the
+// genome chars at window index j of the two views; rl_*/gl_* the
+// directions' read and genome lengths, c.g/c.s the seed in the window and
+// the read, ``at_start`` a seed at genome position 0.  One loop
+// runs the backward direction's rows (K2's function: the reversed read
+// prefix against the reversed genome prefix, cost and accept offset) and
+// then the forward direction's (K1's: the read suffix after the seed
+// against the genome from the seed end, the cost), rows_b + rows_f
+// iterations in all.  Each row's read code and rolled-in genome char
+// (none on a direction's row 0) are loaded one iteration ahead, so their
+// latency hides behind the row before them.  The forward rows run the
+// cost alone: the entries order their candidates so that the lanes of a
+// warp switch direction together (without that order, a warp would run
+// both forms of the row, which was slower than the offset everywhere).
+template <class C>
+__device__ __forceinline__ void extend_one(const C& c, int rmax,
                                            uint8_t* ok_out, int32_t* errs_out,
                                            int32_t* begin_out) {
-  const int rl_b = g > 0 ? s : 0;
-  const int rows_b = min(rl_b, rmax);
-  const int rl_f = L - s - kK;
+  const int rl_b = c.rl_b(), gl_b = c.gl_b(), rl_f = c.rl_f(),
+            gl_f = c.gl_f();
+  const int g = c.g, s = c.s;
+  auto gb = [&](int j) { return c.gb(j); };
+  auto gf = [&](int j) { return c.gf(j); };
+  const int rows_b = max(0, min(rl_b, rmax));
   const int rows_f = max(0, min(rl_f, rmax));
-  const int gl_f = gl - g - kK;
   Band b;
   band_init(b);
   if (rows_b > 0) {
@@ -317,19 +379,17 @@ __device__ __forceinline__ void extend_one(int L, int rmax, int gl, int g,
   int cb = 0;  // the backward cost and offset of an empty direction
   int ab = 0;
   const int total = rows_b + rows_f;
-  // iteration k's row, read code and rolled-in genome char (none on a
-  // direction's row 0); each is loaded one iteration ahead, so its
-  // latency hides behind the row before it
+  // iteration k's row, read code and rolled-in genome char
   auto row_of = [&](int k) {
     return k < rows_b ? rows_b - 1 - k : total - 1 - k;
   };
   auto code_at = [&](int k) -> uint32_t {
     const int r = row_of(k);
-    return k < rows_b ? rd(s - 1 - r) : rd(s + kK + r);
+    return k < rows_b ? c.rb(r) : c.rf(r);
   };
   auto char_at = [&](int k) -> uint32_t {
     const int r = row_of(k);
-    return r == 0 ? 0u : k < rows_b ? gb(r) : gf(r);
+    return r == 0 ? 0u : k < rows_b ? c.gb(r) : c.gf(r);
   };
   uint32_t rc = total > 0 ? code_at(0) : 0u;
   uint32_t ch = total > 0 ? char_at(0) : 0u;
@@ -339,10 +399,14 @@ __device__ __forceinline__ void extend_one(int L, int rmax, int gl, int g,
     const uint32_t ch_next = more ? char_at(k + 1) : 0u;
     const bool back = k < rows_b;
     const int r = row_of(k);
-    const int lim = (back ? g : gl_f) - r + 2;
-    band_row<true>(b, rc * kOne2,
-                   static_cast<uint32_t>(min(max(lim, 0), 8)),
-                   r + 1 == (back ? rl_b : rl_f));
+    const uint32_t t = static_cast<uint32_t>(
+        min(max((back ? gl_b : gl_f) - r + 2, 0), 8));
+    const bool last = r + 1 == (back ? rl_b : rl_f);
+    if (back) {
+      band_row<true>(b, rc * kOne2, t, last);
+    } else {
+      band_row<false>(b, rc * kOne2, t, last);
+    }
     if (r > 0) {
       band_roll(b, ch);
     } else if (back) {  // the backward direction is done: start the forward
@@ -354,11 +418,14 @@ __device__ __forceinline__ void extend_one(int L, int rmax, int gl, int g,
     rc = rc_next;
     ch = ch_next;
   }
+  // ok = both costs <= ERROR_LIMIT, errs their sum, begin = g - s - the
+  // backward accept offset; a seed at genome position 0 (graph.cc:797-798)
+  // accepts iff s < 6, with s more errors and begin -1
   const int cf = lane3(b.c[1]);
   bool ok = cf <= kErrorLimit && cb <= kErrorLimit;
   int errs = cf + cb;
   int begin = g - s - ab;
-  if (g == 0) {  // a seed at genome position 0 (graph.cc:797-798)
+  if (c.at_start()) {
     ok = ok && s < 6;
     errs += s;
     begin = -1;
@@ -368,35 +435,157 @@ __device__ __forceinline__ void extend_one(int L, int rmax, int gl, int g,
   *begin_out = begin;
 }
 
-// Both directions of each candidate of a resident read set, then the
-// epilogue (ok, errs, begin), as ops.extend.stage_views + dp_rows +
-// extend_epilogue compute them.  Each thread loads its bytes from device
-// memory (through L1) as the rows need them.
+// The resident loader: read codes [rows, Lc] with each row's read length
+// (lens), the window buffer, and each candidate's window offset and
+// length, seed and row.
+struct ResidentLoad {
+  const uint8_t* codes;
+  const int32_t* lens;
+  const uint8_t* buf;
+  const int32_t* base;
+  const int32_t* glen;
+  const int32_t* g0;
+  const int32_t* r0;
+  const int32_t* row;
+  int Lc;
+  __device__ __forceinline__ ResidentCand cand(int i) const {
+    const int rw = __ldg(row + i);
+    return {codes + static_cast<size_t>(rw) * Lc, buf + __ldg(base + i),
+            __ldg(g0 + i), __ldg(r0 + i), __ldg(glen + i),
+            __ldg(lens + rw)};
+  }
+};
+
+// The staged loader: the staged dict's views and per-candidate arrays.
+struct StagedLoad {
+  const uint8_t* read_f;
+  const uint8_t* gwin_f;
+  const int32_t* rlen_f;
+  const int32_t* glen_f;
+  const uint8_t* read_b;
+  const uint8_t* gwin_b;
+  const int32_t* rlen_b;
+  const int32_t* glen_b;
+  const int32_t* g0;
+  const int32_t* r0;
+  const uint8_t* at_start;
+  int rmax;
+  __device__ __forceinline__ StagedCand cand(int i) const {
+    const size_t rd = static_cast<size_t>(i) * rmax;
+    const size_t gw = static_cast<size_t>(i) * (rmax + 2 * kPad);
+    return {read_b + rd, read_f + rd, gwin_b + gw, gwin_f + gw,
+            __ldg(rlen_b + i), __ldg(glen_b + i), __ldg(rlen_f + i),
+            __ldg(glen_f + i), __ldg(g0 + i), __ldg(r0 + i),
+            __ldg(at_start + i) != 0};
+  }
+};
+
+// The exact entries: thread t runs candidate order[t] of ``load`` and
+// writes its (ok, errs, begin) in place.
+template <class Load>
 __global__ void __launch_bounds__(kThreads)
-extend_fused_kernel(const uint8_t* __restrict__ codes,
-                    const uint8_t* __restrict__ buf,
-                    const int32_t* __restrict__ base,
-                    const int32_t* __restrict__ glen,
-                    const int32_t* __restrict__ g0,
-                    const int32_t* __restrict__ r0,
-                    const int32_t* __restrict__ row, int n, int L, int rmax,
-                    uint8_t* __restrict__ ok_out,
-                    int32_t* __restrict__ errs_out,
-                    int32_t* __restrict__ begin_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int gl = glen[i];
-  const int g = g0[i];
-  const uint8_t* rd = codes + static_cast<size_t>(row[i]) * L;
-  const uint8_t* gw = buf + base[i];
-  extend_one(
-      L, rmax, gl, g, r0[i], [&](int j) -> uint32_t { return rd[j]; },
-      [&](int j) { return gen_backward(gw, g, j); },
-      [&](int j) { return gen_forward(gw, g, gl, j); }, ok_out + i,
-      errs_out + i, begin_out + i);
+extend_kernel(Load load, const int32_t* __restrict__ order, int n, int rmax,
+              uint8_t* __restrict__ ok_out, int32_t* __restrict__ errs_out,
+              int32_t* __restrict__ begin_out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const int i = __ldg(order + t);
+  extend_one(load.cand(i), rmax, ok_out + i, errs_out + i, begin_out + i);
 }
 
 int launch_blocks(int n) { return (n + kThreads - 1) / kThreads; }
+
+// The thread order of an exact launch: the candidates bucketed by their
+// (rows_b, rows_f) with a counting sort, so that the lanes of a warp run
+// as many rows and switch direction together.  Within a bucket the order
+// is whatever the atomics give: it only schedules the threads, and every
+// result is written in place.  order_count writes each candidate's key
+// and counts the keys, order_scan turns the counts into bucket offsets
+// (one block), order_scatter places each candidate at its bucket's next
+// slot.
+template <class Load>
+__global__ void __launch_bounds__(kThreads)
+order_count(Load load, int n, int rmax, int32_t* __restrict__ hist,
+            int32_t* __restrict__ key) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const auto c = load.cand(i);
+  const int k = max(0, min(c.rl_b(), rmax)) * (rmax + 1) +
+                max(0, min(c.rl_f(), rmax));
+  key[i] = k;
+  atomicAdd(hist + k, 1);
+}
+
+constexpr int kScanThreads = 1024;
+
+__global__ void __launch_bounds__(kScanThreads)
+order_scan(int32_t* __restrict__ hist, int m) {
+  __shared__ int32_t part[kScanThreads];
+  const int t = threadIdx.x;
+  const int per = (m + kScanThreads - 1) / kScanThreads;
+  const int lo = min(t * per, m);
+  const int hi = min(lo + per, m);
+  int sum = 0;
+  for (int j = lo; j < hi; ++j) sum += hist[j];
+  part[t] = sum;
+  __syncthreads();
+  for (int d = 1; d < kScanThreads; d <<= 1) {  // inclusive scan
+    const int v = t >= d ? part[t - d] : 0;
+    __syncthreads();
+    part[t] += v;
+    __syncthreads();
+  }
+  int run = part[t] - sum;
+  for (int j = lo; j < hi; ++j) {
+    const int h = hist[j];
+    hist[j] = run;
+    run += h;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+order_scatter(const int32_t* __restrict__ key, int n,
+              int32_t* __restrict__ next, int32_t* __restrict__ order) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) order[atomicAdd(next + key[i], 1)] = i;
+}
+
+// The ints of scratch an exact launch of n candidates with row bound
+// rmax needs: the keys, the order, the buckets.
+int order_scratch(int n, int rmax) {
+  return 2 * n + (rmax + 1) * (rmax + 1);
+}
+
+// Order the n candidates of ``load`` into scratch (order_scratch ints);
+// returns the order.
+template <class Load>
+const int32_t* launch_order(const Load& load, int n, int rmax,
+                            int32_t* scratch, cudaStream_t s) {
+  int32_t* key = scratch;
+  int32_t* order = scratch + n;
+  int32_t* hist = scratch + 2 * n;
+  const int m = (rmax + 1) * (rmax + 1);
+  cudaMemsetAsync(hist, 0, sizeof(int32_t) * m, s);
+  order_count<<<launch_blocks(n), kThreads, 0, s>>>(load, n, rmax, hist,
+                                                    key);
+  order_scan<<<1, kScanThreads, 0, s>>>(hist, m);
+  order_scatter<<<launch_blocks(n), kThreads, 0, s>>>(key, n, hist, order);
+  return order;
+}
+
+// The exact entries' launch: the order, then the extension.
+template <class Load>
+int launch_exact(const Load& load, int n, int rmax, void* scratch,
+                 void* ok_out, void* errs_out, void* begin_out,
+                 void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int32_t* order =
+      launch_order(load, n, rmax, static_cast<int32_t*>(scratch), s);
+  extend_kernel<<<launch_blocks(n), kThreads, 0, s>>>(
+      load, order, n, rmax, static_cast<uint8_t*>(ok_out),
+      static_cast<int32_t*>(errs_out), static_cast<int32_t*>(begin_out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -427,8 +616,10 @@ extern "C" int gaml_swar_cost_accept(const void* read_t, const void* gwin_t,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3/K4a/K4b: exact (unsaturated) cost plus accept offset of the start
-// state, for any n and rmax.
+// The exact (unsaturated) cost plus accept offset of the start state of
+// one direction, for any n and rmax: the contract of the TPU kernels
+// K3/K4a/K4b (dp_rows_pallas*), kept as an API and as the K6 tool's
+// yardstick; the main paths run the two-direction entries below.
 extern "C" int gaml_dp_rows_exact(const void* read_t, const void* gwin_t,
                                   const void* rlen, const void* glen, int n,
                                   int rmax, void* c_out, void* a_out,
@@ -441,22 +632,50 @@ extern "C" int gaml_dp_rows_exact(const void* read_t, const void* gwin_t,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1 + K2 fused: both directions and the epilogue for n candidates of a
-// resident read set.  codes [rows, L] uint8; buf [G] uint8; base, glen,
-// g0, r0, row [n] int32; outputs ok uint8 [n], errs and begin int32 [n].
-extern "C" int gaml_extend_fused(const void* codes, const void* buf,
-                                 const void* base, const void* glen,
-                                 const void* g0, const void* r0,
-                                 const void* row, int n, int L, int rmax,
+// K3/K4a/K4b (and the rescore's K1 + K2) as one exact two-direction
+// extension, resident loader: both directions and the epilogue for n
+// candidates.  codes [rows, Lc] uint8 with row lengths lens [rows] int32;
+// buf [G] uint8; base, glen, g0, r0, row [n] int32; scratch of
+// gaml_exact_scratch(n, rmax) int32 for the candidates' order; outputs ok
+// uint8 [n], errs and begin int32 [n].
+extern "C" int gaml_extend_exact(const void* codes, const void* lens,
+                                 const void* buf, const void* base,
+                                 const void* glen, const void* g0,
+                                 const void* r0, const void* row,
+                                 void* scratch, int n, int Lc, int rmax,
                                  void* ok_out, void* errs_out,
                                  void* begin_out, void* stream) {
-  extend_fused_kernel<<<launch_blocks(n), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), static_cast<const uint8_t*>(buf),
-      static_cast<const int32_t*>(base), static_cast<const int32_t*>(glen),
+  const ResidentLoad load{
+      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(lens),
+      static_cast<const uint8_t*>(buf), static_cast<const int32_t*>(base),
+      static_cast<const int32_t*>(glen), static_cast<const int32_t*>(g0),
+      static_cast<const int32_t*>(r0), static_cast<const int32_t*>(row), Lc};
+  return launch_exact(load, n, rmax, scratch, ok_out, errs_out, begin_out,
+                      stream);
+}
+
+// The same, staged loader: the staged dict's candidate-major views
+// read_f/read_b [n, rmax] and gwin_f/gwin_b [n, rmax + 2*PAD] uint8,
+// rlen_*, glen_*, g0, r0 [n] int32 and at_start [n] uint8 (bool).
+extern "C" int gaml_extend_exact_staged(
+    const void* read_f, const void* gwin_f, const void* rlen_f,
+    const void* glen_f, const void* read_b, const void* gwin_b,
+    const void* rlen_b, const void* glen_b, const void* g0, const void* r0,
+    const void* at_start, void* scratch, int n, int rmax, void* ok_out,
+    void* errs_out, void* begin_out, void* stream) {
+  const StagedLoad load{
+      static_cast<const uint8_t*>(read_f), static_cast<const uint8_t*>(gwin_f),
+      static_cast<const int32_t*>(rlen_f), static_cast<const int32_t*>(glen_f),
+      static_cast<const uint8_t*>(read_b), static_cast<const uint8_t*>(gwin_b),
+      static_cast<const int32_t*>(rlen_b), static_cast<const int32_t*>(glen_b),
       static_cast<const int32_t*>(g0), static_cast<const int32_t*>(r0),
-      static_cast<const int32_t*>(row), n, L, rmax,
-      static_cast<uint8_t*>(ok_out), static_cast<int32_t*>(errs_out),
-      static_cast<int32_t*>(begin_out));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const uint8_t*>(at_start), rmax};
+  return launch_exact(load, n, rmax, scratch, ok_out, errs_out, begin_out,
+                      stream);
+}
+
+// The int32 scratch the exact entries need for n candidates at row bound
+// rmax.
+extern "C" int gaml_exact_scratch(int n, int rmax) {
+  return order_scratch(n, rmax);
 }

@@ -2,8 +2,10 @@
 
 Two model families mirror the reference's short-read set kinds:
 
-- SingleEndModel: candidates -> two-direction extension (one exact
-  dp_rows_exact launch, K4) -> dedup -> floored mean-log score
+- SingleEndModel: candidates -> two-direction exact extension (one
+  launch: extend_exact_staged on a staged dict in ``forward``,
+  extend_exact on one read matrix and window in ``score_candidates``;
+  the counterparts of K3/K4) -> dedup -> floored mean-log score
   (reference CalcScoreForPaths single, graph.cc:1650-1743);
 - PairedEndModel: dense per-read position lists -> innie pair products
   with the insert-size Gaussian -> floored mean-log score (reference
@@ -22,9 +24,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.extend import stage_candidates
+from ..ops.extend import K, read_matrix
+from ..ops.extend_cuda import extend_exact
 from ..ops.pair import paired_score_device, stage_positions_dense
-from ..ops.score import single_end_forward
+from ..ops.score import candidates_to_score, single_end_forward
 
 
 class LikelihoodModel(nn.Module):
@@ -67,15 +70,25 @@ class SingleEndModel(LikelihoodModel):
 
     def score_candidates(self, seq, cands, n_reads: int, read_lens,
                          total_len: int):
-        """Host convenience: stage [(Candidate, oriented_read)] against
-        the window ``seq`` and run the forward step.  Returns (score,
-        zero_reads, read_probs numpy)."""
-        st = stage_candidates(
-            seq, [c.genome_pos for c, _ in cands],
-            [c.read_pos for c, _ in cands], [r for _, r in cands],
-            read_ids=[c.read_id for c, _ in cands], device=self.device)
-        score, zeros, probs = self(st, self._t(read_lens), total_len,
-                                   n_reads)
+        """Host convenience: [(Candidate, oriented_read)] against the
+        window ``seq``, as forward() scores their staged dict: the
+        oriented reads as one read matrix and ``seq`` as the window
+        buffer, one launch of the exact extension, then dedup and the
+        reduction.  Returns (score, zero_reads, read_probs numpy)."""
+        mat, lens = read_matrix([r for _, r in cands])
+        n = len(cands)
+        t = self._t
+        zero = t(np.zeros(n))
+        ok, errs, begin = extend_exact(
+            t(mat, torch.uint8), t(lens), t(seq, torch.uint8), zero,
+            t(np.full(n, len(seq))), t([c.genome_pos for c, _ in cands]),
+            t([c.read_pos for c, _ in cands]), t(np.arange(n)),
+            max(mat.shape[1] - K, 1))
+        score, zeros, probs = candidates_to_score(
+            ok, errs, begin, t(np.ones(n), torch.bool),
+            t([c.read_id for c, _ in cands]), t(lens), t(read_lens),
+            self.log_match, self.log_mismatch, total_len,
+            self.min_prob_per_base, self.min_prob_start, n_reads)
         return float(score), int(zeros), probs.cpu().numpy()
 
 

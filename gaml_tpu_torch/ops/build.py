@@ -107,9 +107,12 @@ def load():
         lib.gaml_swar_cost_accept.restype = i
         lib.gaml_dp_rows_exact.argtypes = [p, p, p, p, i, i, p, p, p]
         lib.gaml_dp_rows_exact.restype = i
-        lib.gaml_extend_fused.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p,
-                                          p, p]
-        lib.gaml_extend_fused.restype = i
+        lib.gaml_extend_exact.argtypes = [p] * 9 + [i, i, i] + [p] * 4
+        lib.gaml_extend_exact.restype = i
+        lib.gaml_extend_exact_staged.argtypes = [p] * 12 + [i, i] + [p] * 4
+        lib.gaml_extend_exact_staged.restype = i
+        lib.gaml_exact_scratch.argtypes = [i, i]
+        lib.gaml_exact_scratch.restype = i
         lib.gaml_banded_forward.argtypes = [p, i, i, p, p, i, p, i, p, p, p,
                                             p, i, i, ctypes.c_float,
                                             ctypes.c_float, p, p]

@@ -9,7 +9,8 @@ graph.cc:753-837, collapsed into a 7-diagonal min-plus DP):
 - ``stage_views`` builds both directions' kernel inputs with torch
   gathers from a read-code matrix and a window buffer (the one staging
   code path of the port); ``stage_candidates`` wraps it into the JAX
-  package's staged dict;
+  package's staged dict; ``read_matrix`` packs reads of any lengths into
+  such a matrix;
 - ``extend_epilogue`` turns direction costs into (ok, errs, begin).
 """
 from __future__ import annotations
@@ -171,6 +172,31 @@ def stage_views(codes, read_len, buf, base, glen, g0, r0, row, rmax: int):
              i32(glen_b)))
 
 
+def read_matrix(reads):
+    """Reads of any lengths as one uint8 matrix [n, Lmax] (SENT_READ past
+    each read's end; at least one column) and their lengths int64 [n]:
+    one concatenation and one scatter."""
+    n = len(reads)
+    lens = np.fromiter(map(len, reads), dtype=np.int64, count=n)
+    mat = np.full((n, int(lens.max(initial=1))), SENT_READ, dtype=np.uint8)
+    if lens.sum():
+        flat = np.concatenate(reads)
+        starts = np.repeat(np.cumsum(lens) - lens, lens)
+        mat[np.repeat(np.arange(n), lens),
+            np.arange(len(flat)) - starts] = flat
+    return mat, lens
+
+
+def window_buffer(seqs):
+    """Windows concatenated into one uint8 buffer, with each window's
+    offset and length in it (int64)."""
+    seq_lens = np.fromiter(map(len, seqs), dtype=np.int64, count=len(seqs))
+    seq_base = np.cumsum(seq_lens) - seq_lens
+    buf = np.concatenate([np.asarray(s, dtype=np.uint8) for s in seqs]) \
+        if seqs else np.zeros(0, np.uint8)
+    return buf, seq_base, seq_lens
+
+
 def stage_candidates(seq, g0s, r0s, reads, rmax: int = None,
                      nb: int = None, read_ids=None, seq_idx=None,
                      device="cuda"):
@@ -192,18 +218,12 @@ def stage_candidates(seq, g0s, r0s, reads, rmax: int = None,
                      dtype=np.int64)
     g0s = np.asarray(g0s, dtype=np.int64)
     r0s = np.asarray(r0s, dtype=np.int64)
-    rlens = np.array([len(r) for r in reads], dtype=np.int64)
+    mat, rlens = read_matrix(reads)
     if rmax is None:
         rmax = max(int((rlens - r0s - K).max(initial=1)),
                    int(r0s.max(initial=1)), 1)
     nb = n if nb is None else nb
-    mat = np.full((n, int(rlens.max(initial=1))), SENT_READ, dtype=np.uint8)
-    for i, r in enumerate(reads):
-        mat[i, :len(r)] = r
-    seq_lens = np.array([len(s) for s in seqs], dtype=np.int64)
-    seq_base = np.zeros(len(seqs), dtype=np.int64)
-    np.cumsum(seq_lens[:-1], out=seq_base[1:])
-    buf = np.concatenate([np.asarray(s, dtype=np.uint8) for s in seqs])
+    buf, seq_base, seq_lens = window_buffer(seqs)
 
     def t(x):
         return torch.as_tensor(x, device=dev)

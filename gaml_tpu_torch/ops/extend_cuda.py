@@ -1,26 +1,34 @@
-"""Kernels K1-K4 and the fused extension (csrc/band_dp.cu): wrappers,
-plain versions, launch counts.
+"""Kernels K1-K4 and the exact two-direction extension (csrc/band_dp.cu):
+wrappers, plain versions, launch counts.
 
 K1 ``swar_cost`` replaces gaml_tpu/ops/extend_pallas.py::swar_cost_pallas
 (forward direction: the d=0 cost saturated at 7).  K2
 ``swar_cost_accept`` replaces ::swar_cost_accept_pallas (backward
 direction: that cost plus the preferred accept offset, INVALID_A where
-none).  ``dp_rows_exact`` replaces K3 ::dp_rows_pallas_reg_dyn, K4a
-::dp_rows_pallas and K4b ::dp_rows_pallas_reg: the exact, unsaturated
-(cost, offset) of the start state.  ``extend_kernel_exact`` replaces
-::extend_kernel_pallas: both directions of a staged dict in one launch.
-``extend_fused`` replaces K1 + K2 on the rescore's path: both directions
-of each candidate of a resident read set, gathered in the kernel from the
-read codes and the window buffer, and the epilogue (ok, errs, begin).
-Inputs follow the JAX kernels' candidate-minor layout:
-read_t [rmax, n] uint8 (codes 0-4, sentinel 6), gwin_t [rmax + 2*PAD, n]
-uint8 (codes 0-4, sentinel 8), rlen/glen [n] int32.  Unlike the TPU
-kernels there is no block row bound and no layout permutation: the
-kernels bound rows per candidate and take any n.
+none).  ``dp_rows_exact`` keeps the contract of K3
+::dp_rows_pallas_reg_dyn, K4a ::dp_rows_pallas and K4b
+::dp_rows_pallas_reg: the exact, unsaturated (cost, offset) of the start
+state of one direction, on candidate-minor inputs read_t [rmax, n] uint8
+(codes 0-4, sentinel 6), gwin_t [rmax + 2*PAD, n] uint8 (codes 0-4,
+sentinel 8), rlen/glen [n] int32.  Unlike the TPU kernels there is no
+block row bound and no layout permutation: the kernels bound rows per
+candidate and take any n.
+
+What the JAX package computes with K3/K4 (both directions of each seed
+candidate and the epilogue, ::extend_kernel_pallas and
+gaml_tpu/ops/score.py), and with K1 + K2 on its rescore path, is
+``extend_exact``: both directions and the epilogue (ok, errs, begin) in
+one launch, with the gathers inside, from a resident read-code matrix of
+any read lengths and a window buffer, or ``extend_exact_staged`` on a
+staged dict's candidate-major views, read where they lie.  Each launch
+first orders its candidates by their row counts on the card (a counting
+sort; the kernel runs them in that order and writes each result in
+place).
 
 Contract (from the JAX kernels): K1 c == min(c_exact, 7); K2 the same c
 and a == a_exact wherever c_exact <= 6; dp_rows_exact c == c_exact and
-a == a_exact everywhere.  The CUDA kernels return the exact a everywhere.
+a == a_exact everywhere; the two-direction entries ok everywhere, errs
+and begin wherever ok (the CUDA kernels are exact everywhere).
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor
 they launch the kernel or raise.
@@ -37,7 +45,7 @@ SAT = 7
 
 # launches of each kernel by its wrapper (plain-version calls not counted)
 LAUNCHES = {"swar_cost": 0, "swar_cost_accept": 0, "dp_rows_exact": 0,
-            "extend_fused": 0}
+            "extend_exact": 0, "extend_exact_staged": 0}
 
 
 def dp_rows_exact_ref(read_t, gwin_t, rlen, glen):
@@ -145,79 +153,137 @@ def dp_rows_exact(read_t, gwin_t, rlen, glen):
     return c, a
 
 
-def extend_kernel_exact(st):
-    """Both directions of a staged dict (ops.extend.stage_candidates or
-    the JAX package's; candidate-major read_*/gwin_* [nb, *] uint8,
-    lengths [nb]) stacked into one dp_rows_exact launch of 2*nb
-    candidates, on the device of st["read_f"].  Returns (ok, errs,
-    d_back) over the padded batch: ok = both costs <= ERROR_LIMIT, errs
-    their sum, d_back the backward accept offset."""
-    t = {k: torch.as_tensor(st[k]) for k in
-         ("read_f", "gwin_f", "rlen_f", "glen_f",
-          "read_b", "gwin_b", "rlen_b", "glen_b")}
-    nb = t["read_f"].shape[0]
-    c, a = dp_rows_exact(
-        torch.cat([t["read_f"].t(), t["read_b"].t()], dim=1),
-        torch.cat([t["gwin_f"].t(), t["gwin_b"].t()], dim=1),
-        torch.cat([t["rlen_f"], t["rlen_b"]]).to(torch.int32),
-        torch.cat([t["glen_f"], t["glen_b"]]).to(torch.int32))
-    cf, cb = c[:nb], c[nb:]
-    ok = (cf <= ERROR_LIMIT) & (cb <= ERROR_LIMIT)
-    return ok, cf + cb, a[nb:]
-
-
-def extend_fused_ref(codes, buf, base, glen, g0, r0, row, rmax: int):
-    """Plain torch version of the fused extension: ops.extend.stage_views,
-    dp_rows in each direction and extend_epilogue.  Returns (ok bool,
-    errs int32, begin int32), each [n]."""
-    i64 = [x.to(torch.int64) for x in (base, glen, g0, r0, row)]
-    base, glen, g0, r0, row = i64
-    read_len = torch.full_like(g0, codes.shape[1])
-    fwd, bwd = stage_views(codes, read_len, buf, base, glen, g0, r0, row,
-                           rmax)
+def extend_exact_ref(codes, lens, buf, base, glen, g0, r0, row, rmax: int):
+    """Plain torch version of the exact extension (resident loader):
+    ops.extend.stage_views with each candidate's read length lens[row],
+    dp_rows in each direction and extend_epilogue.  Returns (ok bool, errs
+    int32, begin int32), each [n]."""
+    base, glen, g0, r0, row = (x.to(torch.int64)
+                               for x in (base, glen, g0, r0, row))
+    fwd, bwd = stage_views(codes, lens.to(torch.int64)[row], buf, base, glen,
+                           g0, r0, row, rmax)
     cf, _ = dp_rows_exact_ref(*fwd)
     cb, ab = dp_rows_exact_ref(*bwd)
     ok = (cf <= ERROR_LIMIT) & (cb <= ERROR_LIMIT)
     return extend_epilogue(ok, cf + cb, ab, g0, r0, g0 == 0)
 
 
-def extend_fused(codes, buf, base, glen, g0, r0, row, rmax: int):
-    """K1 + K2 fused: both directions of each candidate and the epilogue.
-
-    codes: [rows, L] uint8 read codes (orientation folded into ``row``);
-    buf: [G] uint8 window buffer; base/glen: each candidate's window
-    offset and length in buf; g0/r0: the seed start in the window and in
-    the oriented read; row: its row of codes; all int32 [n].  rmax is the
-    band's row bound (L - K on the rescore's path).  Returns (ok bool,
-    errs int32, begin int32), each [n]: errs and begin are meaningful
-    where ok."""
-    n = base.shape[0]
-    meta = {"base": base, "glen": glen, "g0": g0, "r0": r0, "row": row}
+def _check_resident(codes, lens, buf, meta):
+    """Input checks of the resident entry: codes uint8 [rows, L], lens
+    int32 [rows], buf uint8 [G] and the int32 [n] tensors of ``meta``
+    (name -> tensor), all contiguous on one device."""
     if codes.dim() != 2 or codes.dtype != torch.uint8:
         raise ValueError(f"codes must be uint8 [rows, L], got {codes.dtype} "
                          f"{tuple(codes.shape)}")
     if buf.dim() != 1 or buf.dtype != torch.uint8:
         raise ValueError(f"buf must be uint8 [G], got {buf.dtype} "
                          f"{tuple(buf.shape)}")
+    n = meta["g0"].shape[0]
+    want = {k: (n,) for k in meta}
+    meta = dict(meta, lens=lens)
+    want["lens"] = (codes.shape[0],)
     for name, t in meta.items():
-        if t.dtype != torch.int32 or tuple(t.shape) != (n,):
-            raise ValueError(f"{name}: want int32 ({n},), got {t.dtype} "
-                             f"{tuple(t.shape)}")
+        if t.dtype != torch.int32 or tuple(t.shape) != want[name]:
+            raise ValueError(f"{name}: want int32 {want[name]}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
     for name, t in [*meta.items(), ("codes", codes), ("buf", buf)]:
         if t.device != codes.device:
             raise ValueError(f"{name} is on {t.device}, codes on "
                              f"{codes.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if codes.device.type == "cpu":
-        return extend_fused_ref(codes, buf, base, glen, g0, r0, row, rmax)
-    if codes.device.type != "cuda":
+    if codes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {codes.device}")
-    dev = codes.device
-    ok = torch.empty(n, dtype=torch.bool, device=dev)
-    errs = torch.empty(n, dtype=torch.int32, device=dev)
-    begin = torch.empty(n, dtype=torch.int32, device=dev)
+    return n
+
+
+def _outputs(n, device):
+    return (torch.empty(n, dtype=torch.bool, device=device),
+            torch.empty(n, dtype=torch.int32, device=device),
+            torch.empty(n, dtype=torch.int32, device=device))
+
+
+def _exact_scratch(n: int, rmax: int, device):
+    """The int32 scratch of an exact launch (the candidates' order)."""
+    from .build import load
+
+    return torch.empty(load().gaml_exact_scratch(n, rmax), dtype=torch.int32,
+                       device=device)
+
+
+def extend_exact(codes, lens, buf, base, glen, g0, r0, row, rmax: int):
+    """The exact two-direction extension of a resident read set of any
+    read lengths (K3/K4, and K1 + K2 on the rescore's path).
+
+    codes: [rows, L] uint8 read codes (orientation folded into ``row``);
+    lens: int32 [rows], each row's read length (<= L); buf: [G] uint8
+    window buffer; base/glen: each candidate's window offset and length in
+    buf; g0/r0: the seed start in the window and in the oriented read;
+    row: its row of codes; all int32 [n].  rmax is the band's row bound
+    (L - K on the rescore's path).  One launch, the candidates run in the
+    order of a counting sort by their (rows_b, rows_f) on the card.
+    Returns (ok bool, errs int32, begin int32), each [n]: errs and begin
+    are meaningful where ok."""
+    meta = {"base": base, "glen": glen, "g0": g0, "r0": r0, "row": row}
+    n = _check_resident(codes, lens, buf, meta)
+    if codes.device.type == "cpu":
+        return extend_exact_ref(codes, lens, buf, base, glen, g0, r0, row,
+                                rmax)
+    out = _outputs(n, codes.device)
     if n:
-        _call("extend_fused", dev, (codes, buf, base, glen, g0, r0, row),
-              (n, codes.shape[1], rmax), (ok, errs, begin))
-    return ok, errs, begin
+        _call("extend_exact", codes.device,
+              (codes, lens, buf, base, glen, g0, r0, row,
+               _exact_scratch(n, rmax, codes.device)),
+              (n, codes.shape[1], rmax), out)
+    return out
+
+
+STAGED = ("read_f", "gwin_f", "rlen_f", "glen_f", "read_b", "gwin_b",
+          "rlen_b", "glen_b", "g0", "r0", "at_start")
+
+
+def extend_exact_staged_ref(st):
+    """Plain torch version of the exact extension on a staged dict:
+    dp_rows in each direction and extend_epilogue."""
+    cf, _ = dp_rows_exact_ref(st["read_f"].t(), st["gwin_f"].t(),
+                              st["rlen_f"], st["glen_f"])
+    cb, ab = dp_rows_exact_ref(st["read_b"].t(), st["gwin_b"].t(),
+                               st["rlen_b"], st["glen_b"])
+    ok = (cf <= ERROR_LIMIT) & (cb <= ERROR_LIMIT)
+    return extend_epilogue(ok, cf + cb, ab, st["g0"], st["r0"],
+                           st["at_start"])
+
+
+def extend_exact_staged(st):
+    """The exact two-direction extension of a staged dict
+    (ops.extend.stage_candidates or the JAX package's, as tensors):
+    candidate-major views read_f/read_b [nb, rmax] and gwin_f/gwin_b
+    [nb, rmax + 2*PAD] uint8, rlen_*/glen_*/g0/r0 int32 [nb] and at_start
+    bool [nb], each read where it lies.  One launch, the candidates run in
+    the order of a counting sort by their (rows_b, rows_f) on the card.
+    Returns (ok bool, errs int32, begin int32) over the nb candidates."""
+    nb, rmax = st["read_f"].shape
+    dev = st["read_f"].device
+    want = {"read_f": (torch.uint8, (nb, rmax)),
+            "gwin_f": (torch.uint8, (nb, rmax + 2 * PAD)),
+            "at_start": (torch.bool, (nb,))}
+    for name in STAGED:
+        t = st[name]
+        dtype, shape = want.get(name.replace("_b", "_f"),
+                                (torch.int32, (nb,)))
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, read_f on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if dev.type == "cpu":
+        return extend_exact_staged_ref(st)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = _outputs(nb, dev)
+    if nb:
+        _call("extend_exact_staged", dev, tuple(st[k] for k in STAGED)
+              + (_exact_scratch(nb, rmax, dev),), (nb, rmax), out)
+    return out

@@ -5,8 +5,12 @@ read, all (pos1, pos2) combinations with opposite orientations in innie
 geometry contribute p1 * p2 * insert_pdf(dist).  Position lists per read
 are short (coverage-bounded); staged as dense [R, K] arrays the whole
 combination is one [R, K, K] broadcast, then the floored mean-log
-reduction.  Plain torch in float32, as the JAX package leaves it to XLA
-(it is not a Pallas kernel there).
+reduction.  Plain torch, as the JAX package leaves it to XLA (it is not
+a Pallas kernel there), but in float64 where the JAX package computes in
+float32: each pair's log p1 + log p2 + log insert_pdf is formed and
+exponentiated in float64, so pairs with a few errors and an insert far
+off the mean keep their probability where float32 made it 0 and floored
+it (ROADMAP C12; ops.score says why).
 """
 from __future__ import annotations
 
@@ -15,12 +19,12 @@ import math
 import numpy as np
 import torch
 
-from .score import reduce_read_probs
+from .score import alignment_log_probs, reduce_read_probs
 
 
 def paired_pair_product(pos1, ed1, or1, len1, pos2, ed2, or2, len2,
                         log_match, log_mismatch, insert_mean, insert_std):
-    """read_probs float32 [R] from dense position arrays [R, K] (invalid
+    """read_probs float64 [R] from dense position arrays [R, K] (invalid
     entries have pos == -1) and per-read mate lengths [R]."""
     v1 = (pos1 >= 0)[:, :, None]
     v2 = (pos2 >= 0)[:, None, :]
@@ -33,17 +37,13 @@ def paired_pair_product(pos1, ed1, or1, len1, pos2, ed2, or2, len2,
     geom_ok = torch.where(x_first, (x_or == 0) & (y_or == 1),
                           (x_or == 1) & (y_or == 0))
     dist = torch.where(x_first, y_pos - x_pos + len2[:, None, None],
-                       x_pos - y_pos + len1[:, None, None]).to(torch.float32)
+                       x_pos - y_pos + len1[:, None, None]).to(torch.float64)
 
     z = (dist - insert_mean) / insert_std
-    insprob = torch.exp(-z * z / 2.0) / (math.sqrt(2 * math.pi) * insert_std)
-
-    e1, e2 = ed1.to(torch.float32), ed2.to(torch.float32)
-    lp1 = e1 * log_mismatch + (len1[:, None] - ed1).to(torch.float32) \
-        * log_match
-    lp2 = e2 * log_mismatch + (len2[:, None] - ed2).to(torch.float32) \
-        * log_match
-    p = torch.exp(lp1[:, :, None] + lp2[:, None, :]) * insprob
+    log_ins = -z * z / 2.0 - math.log(math.sqrt(2 * math.pi) * insert_std)
+    lp1 = alignment_log_probs(ed1, len1[:, None], log_match, log_mismatch)
+    lp2 = alignment_log_probs(ed2, len2[:, None], log_match, log_mismatch)
+    p = torch.exp(lp1[:, :, None] + lp2[:, None, :] + log_ins)
     p = torch.where(v1 & v2 & geom_ok, p, 0.0)
     return p.sum(dim=(1, 2))
 

@@ -3,7 +3,8 @@
 Port of gaml_tpu/ops/rescore_device.py:
 
   candgen (ops.candgen_device, graph.cc:1289-1348)
-    -> the fused K1 + K2 extension (ops.extend_device)
+    -> both directions of the extension in one launch (K1 + K2's
+       function, ops.extend_device)
     -> first-wins (window, read, begin) dedup (graph.cc:895-897)
     -> per-read probability sum + GetTotalProb (graph.cc:1482-1537)
 
@@ -11,7 +12,9 @@ The reference keeps the FIRST duplicate in candidate emission order.
 Candidates arrive in emission order, grouped by (window, read), so one
 stable sort on an int64 (group, begin) key (ops.score.dedup_alignments
 with the group in place of the read id) puts each group's earliest
-candidate first.  Probabilities and the reduction stay float32, as in JAX.
+candidate first.  Probabilities, their per-read sums and the reduction
+are float64, where the JAX package computes in float32 (ROADMAP C12;
+ops.score says why).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 
 from .candgen_device import Candidates, DeviceCandGen
 from .extend_device import DeviceExtender
-from .score import dedup_alignments, reduce_read_probs
+from .score import alignment_probs, dedup_alignments, reduce_read_probs
 
 
 class DeviceRescorer:
@@ -68,7 +71,7 @@ class DeviceRescorer:
         (ok, errs, begin) over the candidates ``c`` (None when there are
         none), the per-read probability sum and GetTotalProb.  Returns
         (score, zero_reads, n_total)."""
-        read_probs = torch.zeros(self.n_reads, dtype=torch.float32,
+        read_probs = torch.zeros(self.n_reads, dtype=torch.float64,
                                  device=self.device)
         if ext is not None:
             ok, errs, begin = ext
@@ -79,10 +82,8 @@ class DeviceRescorer:
             order, keep = dedup_alignments(grp, begin, ok)
             idx = order[keep]
             rid = c.rid[idx]
-            e = errs[idx].to(torch.float32)
-            rl = self.lens[rid].to(torch.float32)
-            p = torch.exp(e * log_mismatch + (rl - e) * log_match)
-            read_probs.index_add_(0, rid, p)
+            read_probs.index_add_(0, rid, alignment_probs(
+                errs[idx], self.lens[rid], log_match, log_mismatch))
         score, zeros, _ = reduce_read_probs(read_probs, self.lens, total_len,
                                             min_prob_per_base,
                                             min_prob_start)

@@ -150,14 +150,15 @@ def test_bfs_backend_matches_jax_bfs_backend(tmp_path, monkeypatch, capsys,
 def test_mixed_length_trace_matches_jax_device_backend(tmp_path,
                                                        monkeypatch, capsys):
     """A quality-trimmed library (no native bundle): every window batch
-    is one batch_extend_multi call (the exact kernel's route), counted in
-    the summary line."""
+    is one DeviceExtender.run call on the read set's resident codes (one
+    launch of the exact extension), counted in the summary line."""
     from gaml_tpu_torch.ops import extend_device
 
     calls = []
-    real = extend_device.batch_extend_multi
-    monkeypatch.setattr(extend_device, "batch_extend_multi",
-                        lambda *a: calls.append(len(a[4])) or real(*a))
+    real = extend_device.DeviceExtender.run
+    monkeypatch.setattr(extend_device.DeviceExtender, "run",
+                        lambda self, *a, **kw: calls.append(len(a[4]))
+                        or real(self, *a, **kw))
     summary = port_against_jax(tmp_path, monkeypatch, capsys, trimmed=True)
     assert summary["batches"] == len(calls) > 0
     assert summary["candidates"] == sum(calls)

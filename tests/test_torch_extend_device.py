@@ -13,7 +13,7 @@ from gaml_tpu.ops.extend import batch_extend_multi as jax_extend_multi
 from gaml_tpu.ops.extend import extend_staged, stage_candidates_uniform
 from gaml_tpu.ops.extend_device import DeviceExtender as JaxExtender
 from gaml_tpu_torch.align.aligner import window_columns
-from gaml_tpu_torch.ops.extend_cuda import extend_fused
+from gaml_tpu_torch.ops.extend_cuda import extend_exact
 from gaml_tpu_torch.ops.extend_device import (DeviceExtender,
                                               batch_extend_arrays,
                                               extend_candidates)
@@ -73,9 +73,12 @@ def test_run_matches_jax_extender_and_host_staging(tmp_path):
 
 
 def test_exact_backward_route_matches_default(tmp_path, monkeypatch):
-    """GAML_SWAR_BACKWARD=0 runs the backward direction through
-    dp_rows_exact (the K3 route): ok equal, errs and begin equal where
-    ok, to the default K2 route."""
+    """The K3 route (the exact extension, which the JAX engine takes
+    under GAML_SWAR_BACKWARD=0) is the port's one route: a uniform read
+    set's batch is one extend_exact call with or without that variable,
+    and equals the same reads held as a ragged read set
+    (DeviceExtender.from_reads): ok equal, errs and begin equal where
+    ok."""
     rng = np.random.default_rng(7)
     gr, node_seqs = make_linear_graph(rng, [400, 80, 500])
     reads = sample_reads(rng, "".join(node_seqs), 80, 30, err_rate=0.04)
@@ -83,21 +86,25 @@ def test_exact_backward_route_matches_default(tmp_path, monkeypatch):
     seqs = [np.ascontiguousarray(spell_subpath(gr, w)[0], dtype=np.uint8)
             for w in [(0,), (0, 2, 4), (2, 4)]]
     *args, _rid = native_batch(bundle, seqs)
-    ext = DeviceExtender(bundle.codes_fwd, bundle.codes_rc, "cpu")
-    ok, errs, begin = ext.run(*args)
     import gaml_tpu_torch.ops.extend_device as ed
 
     calls = []
-    real = ed.dp_rows_exact
-    monkeypatch.setattr(ed, "dp_rows_exact",
+    real = ed.extend_exact
+    monkeypatch.setattr(ed, "extend_exact",
                         lambda *a: calls.append(1) or real(*a))
+    ext = DeviceExtender(bundle.codes_fwd, bundle.codes_rc, "cpu")
+    ok, errs, begin = ext.run(*args)
     monkeypatch.setenv("GAML_SWAR_BACKWARD", "0")
     ok3, errs3, begin3 = ext.run(*args)
-    assert calls == [1]
+    ragged = DeviceExtender.from_reads(list(bundle.codes_fwd), "cpu")
+    okr, errsr, beginr = ragged.run(*args)
+    assert calls == [1, 1, 1]
     assert ok.sum() > 0 and (~ok).sum() > 0
-    np.testing.assert_array_equal(ok3, ok)
-    np.testing.assert_array_equal(errs3[ok], errs[ok])
-    np.testing.assert_array_equal(begin3[ok], begin[ok])
+    for ok_x, errs_x, begin_x in ((ok3, errs3, begin3),
+                                  (okr, errsr, beginr)):
+        np.testing.assert_array_equal(ok_x, ok)
+        np.testing.assert_array_equal(errs_x[ok], errs[ok])
+        np.testing.assert_array_equal(begin_x[ok], begin[ok])
 
 
 def test_windows_at_buffer_end_match_native():
@@ -188,17 +195,19 @@ def test_aligner_redoes_cap_overflow_on_device(tmp_path):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_fused_extension_matches_staged_route_and_jax(seed):
-    """The fused extension's plain version (on CPU tensors) against the
-    staged route it replaces (stage_views, K1 and K2's plain versions, the
-    epilogue) and the JAX package's extend_kernel staged on the host, on a
-    resident world with uniform reads, indels, seeds at genome position 0
-    and a window that ends the buffer: ok equal, errs and begin equal
-    wherever ok."""
+    """The rescore's extension (the exact entry on a uniform resident read
+    set; plain version on CPU tensors) against
+    the staged route it replaces (stage_views, K1 and K2's plain versions,
+    the epilogue) and the JAX package's extend_kernel staged on the host,
+    on a resident world with uniform reads, indels, seeds at genome
+    position 0 and a window that ends the buffer: ok equal, errs and
+    begin equal wherever ok."""
     codes, seqs, seq_idx, meta = fused_world(seed, 3000)
     L = codes.shape[1]
     buf = np.concatenate(seqs)
     t = [torch.from_numpy(x) for x in meta]
-    got = [x.numpy() for x in extend_fused(torch.from_numpy(codes),
+    lens = torch.full((len(codes),), L, dtype=torch.int32)
+    got = [x.numpy() for x in extend_exact(torch.from_numpy(codes), lens,
                                            torch.from_numpy(buf), *t,
                                            L - 15)]
     base, glen, g0, r0, row = (x.to(torch.int64) for x in t)

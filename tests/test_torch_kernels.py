@@ -1,7 +1,9 @@
-"""Kernels of the port: K1/K2 and the exact K3/K4 kernel
-(gaml_tpu_torch.ops.extend_cuda), the wrappers' CPU route and input
-checks, the K6 tool (gaml_tpu_torch.tools.swar_kernel_proto), and on a
-CUDA card K1, K2, dp_rows_exact, the K6 tool and K5
+"""Kernels of the port: K1/K2, the exact K3/K4 kernel and the exact
+two-direction extension (gaml_tpu_torch.ops.extend_cuda), the wrappers'
+CPU route and input checks, the K6 tool
+(gaml_tpu_torch.tools.swar_kernel_proto), chip_smoke.py's ragged draw,
+and on a CUDA card K1, K2, dp_rows_exact, the exact extension (uniform
+and ragged reads, both loaders), the K6 tool and K5
 (gaml_tpu_torch.ops.forward_cuda) against their plain versions.  Imports
 no jax, so the card tests run on a machine without it:
 
@@ -17,8 +19,8 @@ import torch
 from gaml_tpu_torch.ops import forward_cuda
 from gaml_tpu_torch.ops.extend import PAD, SENT_GEN, SENT_READ
 from gaml_tpu_torch.ops.extend_cuda import (dp_rows_exact,
-                                            dp_rows_exact_ref, extend_fused,
-                                            extend_fused_ref, swar_cost,
+                                            dp_rows_exact_ref, extend_exact,
+                                            extend_exact_ref, swar_cost,
                                             swar_cost_accept,
                                             swar_cost_accept_ref,
                                             swar_cost_ref)
@@ -79,7 +81,7 @@ def random_band_inputs(seed, n, rmax):
 
 
 def fused_world(seed, n, L=40, genome_len=3000, n_reads=200):
-    """A resident read set and a window batch for the fused extension:
+    """A resident read set and a window batch for the resident extension:
     reads of one length L sampled from a random genome (4 % substitutions,
     some deletions and insertions, 1 % N), both orientations as rows of
     ``codes``; four windows, the last one ending the buffer (ROADMAP C1);
@@ -183,41 +185,46 @@ def test_exact_kernel_matches_plain_version_on_card():
     assert torch.equal(a, a_ref)
 
 
+def uniform_args(codes, seqs, meta, device="cpu"):
+    """extend_exact's arguments for a uniform read set: every row of
+    ``codes`` at its full length."""
+    lens = np.full(len(codes), codes.shape[1], np.int32)
+    return [torch.from_numpy(x).to(device) for x in
+            (codes, lens, np.concatenate(seqs), *meta)]
+
+
 @pytest.mark.cuda
 def test_fused_extension_matches_plain_version_on_card():
-    """The fused extension on the card against its plain version on a
-    resident world at the rescore's read length (L = 100): ok everywhere,
-    errs and begin wherever ok (the kernel is exact everywhere, so all
-    three are held everywhere)."""
+    """The rescore's extension (the exact entry on a uniform resident read
+    set, L = 100) on the card against its plain version: ok, errs and
+    begin equal everywhere."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     codes, seqs, _idx, meta = fused_world(12, 20000, L=100,
                                           genome_len=6000, n_reads=600)
-    args = [torch.from_numpy(codes).cuda(),
-            torch.from_numpy(np.concatenate(seqs)).cuda()]
-    args += [torch.from_numpy(x).cuda() for x in meta]
-    want = extend_fused_ref(*args, 100 - 15)
+    args = uniform_args(codes, seqs, meta, "cuda")
+    want = extend_exact_ref(*args, 100 - 15)
     assert 100 < int(want[0].sum()) < len(meta[0])
-    got = extend_fused(*args, 100 - 15)
+    got = extend_exact(*args, 100 - 15)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 
 def test_fused_wrapper_checks_inputs():
+    """The resident exact entry's wrapper (the rescore's) takes the plain
+    version for CPU tensors and refuses a wrong dtype, shape or
+    layout."""
     codes, seqs, _idx, meta = fused_world(3, 50)
-    args = [torch.from_numpy(codes), torch.from_numpy(np.concatenate(seqs))]
-    args += [torch.from_numpy(x) for x in meta]
-    for g, w in zip(extend_fused(*args, 25), extend_fused_ref(*args, 25)):
+    args = uniform_args(codes, seqs, meta)
+    for g, w in zip(extend_exact(*args, 25), extend_exact_ref(*args, 25)):
         assert torch.equal(g, w)
-    bad = list(args)
-    bad[2] = bad[2].to(torch.int64)
-    with pytest.raises(ValueError):
-        extend_fused(*bad, 25)
-    bad = list(args)
-    bad[0] = bad[0][:, ::2]
-    with pytest.raises(ValueError):
-        extend_fused(*bad, 25)
+    for i, bad_arg in ((3, args[3].to(torch.int64)), (0, args[0][:, ::2]),
+                       (1, args[1][:-1])):
+        bad = list(args)
+        bad[i] = bad_arg
+        with pytest.raises(ValueError):
+            extend_exact(*bad, 25)
 
 
 def test_swar_prototype_tool_on_cpu(capsys):
@@ -310,3 +317,67 @@ def test_banded_forward_adversarial_on_card(width):
     for kw in ({"dtype": torch.float64}, {"scaled": True}):
         want = forward_cuda.banded_forward_ref(*args, lm, lmm, width, **kw)
         assert within_tolerance(got, want)[0] == 0
+
+
+@pytest.mark.cuda
+def test_exact_extension_matches_plain_version_on_card():
+    """The exact two-direction extension on the card against its plain
+    versions on a ragged batch (the fused world's reads cut to 60-100 bp,
+    20000 candidates): the resident loader (extend_exact) and the staged
+    loader (extend_exact_staged on a padded staged dict of the same
+    candidates); ok, errs and begin equal everywhere, and the two loaders
+    equal to each other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from gaml_tpu_torch.ops.extend import stage_candidates
+    from gaml_tpu_torch.ops.extend_cuda import (extend_exact,
+                                                extend_exact_ref,
+                                                extend_exact_staged,
+                                                extend_exact_staged_ref)
+
+    codes, seqs, seq_idx, meta = fused_world(12, 20000, L=100,
+                                             genome_len=6000, n_reads=600)
+    lens = np.random.default_rng(5).integers(60, 101, len(codes))
+    codes[np.arange(100) >= lens[:, None]] = SENT_READ
+    base, glen, g0, r0, row = meta
+    r0 = np.minimum(r0, lens[row] - 15).astype(np.int32)
+    args = [torch.from_numpy(x).cuda() for x in (
+        codes, lens.astype(np.int32), np.concatenate(seqs), base, glen, g0,
+        r0, row)]
+    want = extend_exact_ref(*args, 85)
+    assert 100 < int(want[0].sum()) < len(g0)
+    got = extend_exact(*args, 85)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    st = stage_candidates(seqs, g0, r0, [codes[i, :lens[i]] for i in row],
+                          rmax=96, nb=len(g0) + 100, seq_idx=seq_idx,
+                          device="cuda")
+    got_s = extend_exact_staged(st)
+    for g, w, r in zip(got_s, extend_exact_staged_ref(st), got):
+        assert torch.equal(g, w) and torch.equal(g[:len(g0)], r)
+
+
+def test_ragged_draw_inputs_on_cpu():
+    """chip_smoke.py's ragged draw (reads of 60-100 bp, half the
+    candidates at a read's true place) and its staged dict of the same
+    candidates: the plain versions of the two loaders agree everywhere,
+    and the draw has both outcomes and every read length."""
+    import importlib.util
+
+    from gaml_tpu_torch.ops.extend_cuda import extend_exact_staged
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    args, rmax = cs.ragged_draw(1500, "cpu", n_reads=400, genome_len=20000)
+    st = cs.staged_from_resident(args, 96)
+    assert st["read_f"].shape == (1500, 96) and rmax == 85
+    lens = args[1]
+    assert int(lens.min()) == 60 and int(lens.max()) == 100
+    got = extend_exact(*args, rmax)
+    for g, s in zip(got, extend_exact_staged(st)):
+        assert torch.equal(g, s)
+    assert 400 < int(got[0].sum()) < 1100

@@ -1,6 +1,7 @@
 """Read sets of mixed read lengths (quality-trimmed libraries) on the
 port: no native bundle, so a window batch is one host candidate pass and
-one batch_extend_multi call (the exact kernel's route).  Held window by
+one DeviceExtender.run call on the read set's resident codes (one launch
+of the exact extension).  Held window by
 window against gaml_tpu's SubpathAligner(backend="device"), both read
 sets built from the same FASTQ."""
 import numpy as np
@@ -55,13 +56,13 @@ def test_trimmed_read_set_matches_jax_device_aligner(tmp_path, monkeypatch):
     assert getattr(al, "native_bundle", None) is None
     port_gr = port_linear_graph(node_seqs)
     calls = []
-    real = port_extend.batch_extend_multi
+    real = port_extend.DeviceExtender.run
 
-    def spy(*args):
-        calls.append(len(args[4]))
-        return real(*args)
+    def spy(self, *args, **kw):
+        calls.append(len(args[4]))  # the candidates' g0
+        return real(self, *args, **kw)
 
-    monkeypatch.setattr(port_extend, "batch_extend_multi", spy)
+    monkeypatch.setattr(port_extend.DeviceExtender, "run", spy)
     got = al.align_subpaths_batch(port_gr, windows)
     assert len(calls) == 1 and calls[0] > 50
     assert (al.device_batches, al.device_candidates) == (1, calls[0])

@@ -16,6 +16,7 @@ import gaml_tpu.ops.score as jscore
 from gaml_tpu.align.aligner import gen_candidates
 from gaml_tpu.core import dna
 from gaml_tpu.index.maxhash import ReadIndexMaxHash
+from gaml_tpu.ops.extend import batch_extend_host as jax_batch_extend_host
 from gaml_tpu.ops.extend import stage_candidates as jax_stage_candidates
 from gaml_tpu.scoring.paired import calc_score_for_paths_paired
 from gaml_tpu_torch import models as tmodels
@@ -68,8 +69,13 @@ def noisy_world():
 @pytest.mark.parametrize("world", [models_world, noisy_world])
 def test_single_end_model_matches_jax(world):
     """SingleEndModel.score_candidates against the JAX model on the same
-    host candidates: score rel 2e-6, zero_reads equal, read_probs rel
-    1e-6 (float32 in both, sums taken in another order)."""
+    host candidates: score rel 2e-6, zero_reads equal.  The port sums in
+    float64 (ROADMAP C12), so its read_probs are held within rel 1e-12 to
+    the float64 sums of the JAX extension's own first-wins alignments,
+    and against the JAX model's float32 read_probs within rel 1e-6 on
+    the exact reads of models_world; on noisy_world (up to 6 errors a
+    read) the JAX values carry the rounding of their float32 exponent,
+    so there the bound is one float32 epsilon of the largest |log p|."""
     seq, reads = world()
     idx = ReadIndexMaxHash()
     for i, c in enumerate(reads):
@@ -84,9 +90,21 @@ def test_single_end_model_matches_jax(world):
         seq, cands, len(reads), lens, len(seq))
     assert got[1] == want[1]
     np.testing.assert_allclose(got[0], want[0], rtol=2e-6)
-    np.testing.assert_allclose(got[2], want[2], rtol=1e-6, atol=0)
+    f64, seen, log_p = np.zeros(len(reads)), set(), [0.0]
+    for (c, r), (ok, e, begin) in zip(cands,
+                                      jax_batch_extend_host(seq, cands)):
+        if ok and (c.read_id, begin) not in seen:
+            seen.add((c.read_id, begin))
+            f64[c.read_id] += MISMATCH ** e * MATCH ** (len(r) - e)
+            log_p.append(e * np.log(MISMATCH) + (len(r) - e) * np.log(MATCH))
+    assert got[2].dtype == np.float64
+    np.testing.assert_allclose(got[2], f64, rtol=1e-12, atol=0)
+    if world is models_world:
+        np.testing.assert_allclose(got[2], want[2], rtol=1e-6, atol=0)
     if world is noisy_world:
         assert 0 < got[1] < len(reads)
+        exponent = np.finfo(np.float32).eps * np.abs(log_p).max()
+        np.testing.assert_allclose(got[2], want[2], rtol=exponent, atol=0)
 
 
 def test_single_end_forward_matches_jax():
