@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Two checkouts of the port on one NVIDIA GPU, phase against phase.
 
-    python3 chip_ab.py OTHER [--phases 1,2,3,4,5,6,7,8,9,10] [--log FILE]
+    python3 chip_ab.py OTHER [--phases 1,2,3,4,5,6,7,8,9,10,11] [--log FILE]
 
 OTHER is another checkout of the repository (for example the parent
 commit unpacked with ``git archive``).  The named phases of each tree's
@@ -23,7 +23,11 @@ chip_smoke.py); phases 8-9 the exact band DP's times as each tree runs
 it (the exact extension in this tree, the stacked single-direction
 launch before it) and the models' forward step, phase 10 the
 mixed-length anneal's walls and its no-bundle batch split (phases 4, 9
-and 10 share the aureus world).  Any failed check of a phase fails its
+and 10 share the aureus world), phase 11 the device scorers' ms per move
+beside the host scorer's, the bucket products' ms per scoring call, the
+card's busy shares and sharded_single_end_score's ms (it makes its own
+reference runs for the phases among 4, 7 and 9 not asked for; a tree
+without phase 11 fails it).  Any failed check of a phase fails its
 process and this script.
 """
 import argparse
@@ -47,6 +51,7 @@ phases = set(sys.argv[1].split(","))
 device = torch.device("cuda", 0)
 torch.cuda.set_device(device)
 out = {}
+anneal = pb_anneal = models = None
 if "1" in phases:
     from gaml_tpu_torch.ops import extend_cuda as kc
 
@@ -89,7 +94,7 @@ if "5" in phases:
         out[f"K5_w{width}.ms"] = fwd[width]["ms"]
 tmp = tempfile.TemporaryDirectory(prefix="gaml_ab_")
 d = tmp.name
-if phases & {"6", "7"}:
+if phases & {"6", "7", "11"}:
     pb_dir = os.path.join(d, "pacbio")
     os.makedirs(pb_dir)
     pb_genome = cs.write_pacbio_world(pb_dir)
@@ -99,14 +104,14 @@ if "6" in phases:
               "crossover_cells"):
         out["pacbio." + k] = sc[k]
 if "7" in phases:
-    an = cs.phase_pacbio_anneal(device, pb_dir, pb_genome)
+    an = pb_anneal = cs.phase_pacbio_anneal(device, pb_dir, pb_genome)
     for k in ("dev_wall_s", "nat_wall_s", "launches"):
         out["pacbio_anneal." + k] = an[k]
-if phases & {"4", "9", "10"}:
+if phases & {"4", "9", "10", "11"}:
     t0 = time.perf_counter()
     world = cs.write_anneal_world(d) + (time.perf_counter() - t0,)
 if "4" in phases:
-    res = cs.phase_anneal(device, d, world)
+    res = anneal = cs.phase_anneal(device, d, world)
     for k in ("dev_wall_s", "bfs_wall_s", "cpu_wall_s"):
         out["anneal." + k] = res[k]
 if "8" in phases:
@@ -118,7 +123,7 @@ if "8" in phases:
     if "rescore" in ex:
         out["rescore_k3_route.ms"] = ex["rescore"]["k3_route_ms"]
 if "9" in phases:
-    m = cs.phase_models(device, d)
+    m = models = cs.phase_models(device, d)
     out["exact_K4a.ms"] = m["K4a"]["ms"]
     for k in ("forward_ms", "staging_ms", "launch_ms", "dedup_ms",
               "reduction_ms"):
@@ -133,6 +138,18 @@ if "10" in phases:
         out["mixed." + k] = mx[k]
     for k, v in mx.get("batch_split", {}).items():
         out["mixed_batch." + k] = v
+if "11" in phases:
+    sc = cs.phase_device_scorers(device, d, pb_dir, pb_genome, anneal,
+                                 pb_anneal, models)
+    out["scorers.host_ms_per_move"] = sc["host_ms_per_move"]
+    for flag in ("--paired-device-inc", "--device-state", "--paired-device",
+                 "--pacbio-device"):
+        for k in ("ms_per_move", "warm_ms_per_move",
+                  "bucket_products_ms_per_call",
+                  "host_staging_share", "device_busy_share"):
+            if sc[flag].get(k) is not None:
+                out[f"scorers{flag}.{k}"] = sc[flag][k]
+    out["scorers.single_end_ms"] = sc["single_end"]["ms"]
 tmp.cleanup()
 print("AB " + json.dumps(out), flush=True)
 '''

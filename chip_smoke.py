@@ -26,10 +26,10 @@ the JAX package is imported.
    the extension against its plain version on the rescore's own
    candidates;
 3. the same at S. aureus scale (2.8 Mb, 300k reads of 100 bp);
-4. an anneal through ``python -m gaml_tpu_torch.cli --device cuda`` on the
-   2.8 Mb paired world of examples/aureus_like_run.py, held against a
-   ``--device cpu`` run of the same config and reported against the
-   port's ``--backend bfs``;
+4. an anneal (500 iterations) through ``python -m gaml_tpu_torch.cli
+   --device cuda`` on the 2.8 Mb paired world of
+   examples/aureus_like_run.py, held against a ``--device cpu`` run of
+   the same config and reported against the port's ``--backend bfs``;
 5. kernel K5 (the PacBio banded forward DP) against its plain torch
    version in float32 and float64 and against the twin of its arithmetic
    on the card at widths 64 and 128, at an S. aureus-sized batch (2.8 Mb
@@ -64,7 +64,19 @@ the JAX package is imported.
    on the host index and a resident ragged read set through the exact
    extension, while the advice library keeps the device candgen),
    ``--device cuda`` against ``--device cpu``, reported against
-   ``--backend bfs``; and the host split of one such window batch.
+   ``--backend bfs``; and the host split of one such window batch;
+11. the JAX CLI's four device scorers through the port's CLI on the
+   card: ``--paired-device-inc`` and ``--device-state`` over phase 4's
+   anneal (210 iterations in their second runs), ``--paired-device``
+   over 50 iterations (13 in its second run), each run twice (the
+   second in this process under the profiler, each move timed) and
+   held to the default host incremental scorer's trace and .walks;
+   ``--pacbio-device`` on phase 6-7's world, every forward cell on K5,
+   held to phase 7's assembly bound; ``sharded_single_end_score`` on
+   phase 9's candidates against SingleEndModel's score.  Each flag's ms
+   per move and per warm move (beside the host scorer's), the bucket
+   products' ms per scoring call, the host staging's share and the
+   card's busy share.
 
 Kernel times are the median over warm calls of CUDA events around one
 call (the launch included).  Each kernel's bound is the larger of its
@@ -695,6 +707,12 @@ def run_cli(module, cfg, extra, timeout):
     return proc.stdout, wall
 
 
+def summary_of(text):
+    """The CLI's device-work summary (its last line) as a dict."""
+    return json.loads(text.strip().splitlines()[-1]
+                      .split("device work: ", 1)[1])
+
+
 def trace(text):
     """itnum lines with the timestamp field stripped."""
     out = []
@@ -733,8 +751,7 @@ def anneal_against_cpu_and_bfs(device, d, iterations, check_iterations,
         "gaml_tpu_torch.cli", write_config(d, cpu, check_iterations, frag),
         ["--device", "cpu"], timeout)
     dev_tr, bfs_tr, cpu_tr = trace(dev_out), trace(bfs_out), trace(cpu_out)
-    summary = json.loads(dev_out.strip().splitlines()[-1]
-                         .split("device work: ", 1)[1])
+    summary = summary_of(dev_out)
     check(len(dev_tr) >= iterations and len(cpu_tr) >= check_iterations,
           f"short traces: {len(dev_tr)} / {len(cpu_tr)} itnum lines")
     check(dev_tr[:len(cpu_tr)] == cpu_tr,
@@ -759,25 +776,28 @@ def anneal_against_cpu_and_bfs(device, d, iterations, check_iterations,
     res = {"iterations": iterations,
            "dev_wall_s": dev_wall, "bfs_wall_s": bfs_wall,
            "cpu_wall_s": cpu_wall, "cpu_iterations": check_iterations,
+           "dev_anneal_s": summary["anneal_s"],
+           "ms_per_move": summary["anneal_s"] / iterations * 1e3,
            "best_prob": best, "batches": summary["batches"],
            "candidates": summary["candidates"],
            "launches": summary["launches"],
            "vs_bfs_trace": "identical" if diff is None else
            f"first difference at line {diff[0]}",
            "vs_bfs_files": files}
-    return res, diff
+    return res, diff, dev_tr
 
 
-def phase_anneal(device, d, world, iterations=1000, check_iterations=200,
+def phase_anneal(device, d, world, iterations=500, check_iterations=100,
                  timeout=450):
     """The anneal on the aureus world written to ``d`` (``world``: its
     genome length, node count and seconds to write)."""
-    res, diff = anneal_against_cpu_and_bfs(
+    res, diff, dev_tr = anneal_against_cpu_and_bfs(
         device, d, iterations, check_iterations, timeout, ("extend_exact",))
     res = dict(zip(("genome", "nodes", "world_s"), world), **res)
     print("  " + json.dumps(res), flush=True)
     if diff is not None:
         print(f"  {device}: {diff[1]}\n  bfs:  {diff[2]}", flush=True)
+    res["trace"] = dev_tr  # phase 11's reference (not printed)
     return res
 
 
@@ -1101,25 +1121,103 @@ def device_busy_ms(prof):
     return total / 1e3 if total > 0 else None
 
 
-def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
-    """The port's CLI on ``device`` (in this process, under the profiler)
-    against the port's CLI on the native host route, both from the same
-    world and config seed: best score within 0.05, k-mer recall within
-    0.005, junk no higher than native + 0.001, NG50 ratio in
-    [0.95, 1.06] (tests/test_pacbio.py::test_f32_route_anneal_quality_
-    bound, PARITY.md)."""
+def cli_in_process(device, d, cfg, extra, env=None, window=None):
+    """gaml_tpu_torch.cli.main on ``cfg`` in this process (cwd ``d``,
+    ``env`` set for the call, stdout captured), under the profiler, with
+    every launch count set to 0 first.  ``window`` = (first, moves)
+    profiles only those moves of the anneal (the profiler's own
+    processing grows with the events it keeps), else the whole call.
+    Returns (stdout, its summary line, the call's wall seconds, the
+    device's busy milliseconds in the profiled span or None, that span's
+    wall seconds, each move's wall seconds)."""
     import contextlib
     import io
 
     import torch
 
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from asm_quality import assembly_quality
-    from gaml_tpu_torch.core import dna
     from gaml_tpu_torch import cli
     from gaml_tpu_torch.ops import forward_cuda
+    from gaml_tpu_torch.optimize.anneal import Optimizer
 
-    truth = dna.decode_seq(genome)
+    reset_launches()
+    for k in forward_cuda.LAUNCHES:
+        forward_cuda.LAUNCHES[k] = 0
+    buf = io.StringIO()
+    acts = [torch.profiler.ProfilerActivity.CUDA
+            if device.type == "cuda" else torch.profiler.ProfilerActivity.CPU]
+    kw = {} if window is None else {"schedule": torch.profiler.schedule(
+        wait=window[0], warmup=1, active=window[1], repeat=1)}
+    real_step, move_s, live = Optimizer.step, [], []
+
+    def step(self, *args, **kwargs):
+        # every move ends in the score's synchronising fetch
+        t0 = time.perf_counter()
+        out = real_step(self, *args, **kwargs)
+        move_s.append(time.perf_counter() - t0)
+        if window is not None:
+            live[0].step()
+        return out
+
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    cwd = os.getcwd()
+    os.chdir(d)
+    Optimizer.step = step
+    try:
+        with torch.profiler.profile(activities=acts, **kw) as prof, \
+                contextlib.redirect_stdout(buf):
+            live.append(prof)
+            t0 = time.perf_counter()
+            rc = cli.main([cfg, "--device", str(device), *extra])
+            sync(device)
+            wall = time.perf_counter() - t0
+    finally:
+        Optimizer.step = real_step
+        os.chdir(cwd)
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    out = buf.getvalue()
+    check(rc == 0, f"gaml_tpu_torch.cli {' '.join(extra)} exited {rc}")
+    span = wall if window is None else \
+        sum(move_s[window[0] + 1:window[0] + 1 + window[1]])
+    return out, summary_of(out), wall, device_busy_ms(prof), span, move_s
+
+
+def quality(truth, path):
+    """tools/asm_quality.py's assembly quality of the FASTA at ``path``."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from asm_quality import assembly_quality
+
+    return assembly_quality(truth, path)
+
+
+def assembly_bound(d, truth, name, best, nat):
+    """The PacBio anneal ``name`` in ``d``, whose best score is ``best``,
+    against the native route's ``nat`` ({"best_prob", "quality"}): best
+    score within 0.05, k-mer recall within 0.005, junk no higher than
+    native + 0.001, NG50 ratio in [0.95, 1.06] (tests/test_pacbio.py::
+    test_f32_route_anneal_quality_bound, PARITY.md).  Returns the run's
+    quality."""
+    q = quality(truth, os.path.join(d, f"{name}.fasta"))
+    q_nat = nat["quality"]
+    check(abs(best - nat["best_prob"]) < 0.05,
+          f"{name}: best prob {best} vs native {nat['best_prob']}")
+    check(abs(q["kmer_recall"] - q_nat["kmer_recall"]) <= 0.005,
+          f"{name}: k-mer recall {q} vs native {q_nat}")
+    check(q["kmer_junk"] <= q_nat["kmer_junk"] + 0.001,
+          f"{name}: k-mer junk {q} vs native {q_nat}")
+    check(q_nat["ng50"] == 0 or 0.95 <= q["ng50"] / q_nat["ng50"] <= 1.06,
+          f"{name}: NG50 {q} vs native {q_nat}")
+    return q
+
+
+def native_pacbio_run(d, iterations, timeout):
+    """The port's CLI on the native host route (every forward batch on
+    the native kernel) over the PacBio world in ``d``, outputs named nat.
+    Returns (trace, wall seconds)."""
     env = dict(os.environ, GAML_PB_DEVICE_MIN_CELLS=str(NATIVE))
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
@@ -1127,59 +1225,42 @@ def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
         [sys.executable, "-m", "gaml_tpu_torch.cli",
          write_pacbio_config(d, "nat", iterations), "--device", "cpu"],
         cwd=d, env=env, capture_output=True, text=True, timeout=timeout)
-    nat_wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
     check(proc.returncode == 0, f"the native route exited "
           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
-    nat_tr = trace(proc.stdout)
+    return trace(proc.stdout), wall
 
-    cfg = write_pacbio_config(d, "dev", iterations)
-    buf = io.StringIO()
-    forward_cuda.LAUNCHES["banded_forward"] = 0
-    acts = [torch.profiler.ProfilerActivity.CUDA
-            if device.type == "cuda" else torch.profiler.ProfilerActivity.CPU]
-    cwd = os.getcwd()
-    os.chdir(d)
-    try:
-        with torch.profiler.profile(activities=acts) as prof, \
-                contextlib.redirect_stdout(buf):
-            t0 = time.perf_counter()
-            rc = cli.main([cfg, "--device", str(device)])
-            sync(device)
-            dev_wall = time.perf_counter() - t0
-    finally:
-        os.chdir(cwd)
-    launches = forward_cuda.LAUNCHES["banded_forward"]
-    out = buf.getvalue()
-    check(rc == 0, f"gaml_tpu_torch.cli exited {rc}")
+
+def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
+    """The port's CLI on ``device`` (in this process, under the profiler)
+    against the port's CLI on the native host route, both from the same
+    world and config seed, held to assembly_bound."""
+    from gaml_tpu_torch.core import dna
+
+    truth = dna.decode_seq(genome)
+    nat_tr, nat_wall = native_pacbio_run(d, iterations, timeout)
+
+    out, summary, dev_wall, busy, _span, _moves = cli_in_process(
+        device, d, write_pacbio_config(d, "dev", iterations), [])
+    launches = summary["launches"]["banded_forward"]
     dev_tr = trace(out)
-    summary = json.loads(out.strip().splitlines()[-1]
-                         .split("device work: ", 1)[1])
     check(len(dev_tr) >= iterations and len(nat_tr) >= iterations,
           f"short traces: {len(dev_tr)} / {len(nat_tr)} itnum lines")
-    check(summary["launches"]["banded_forward"] == launches and
-          (device.type != "cuda" or launches > 0),
+    check(device.type != "cuda" or launches > 0,
           f"K5 was not launched by the anneal: {summary}")
     check(summary["pacbio_cells"].get(route(device), 0) > 0,
           f"no forward-DP cell on {device}: {summary}")
     best_dev, best_nat = float(dev_tr[-1].split()[9]), \
         float(nat_tr[-1].split()[9])
-    q_dev = assembly_quality(truth, os.path.join(d, "dev.fasta"))
-    q_nat = assembly_quality(truth, os.path.join(d, "nat.fasta"))
-    check(abs(best_dev - best_nat) < 0.05,
-          f"best prob {best_dev} vs native {best_nat}")
-    check(abs(q_dev["kmer_recall"] - q_nat["kmer_recall"]) <= 0.005,
-          f"k-mer recall {q_dev} vs native {q_nat}")
-    check(q_dev["kmer_junk"] <= q_nat["kmer_junk"] + 0.001,
-          f"k-mer junk {q_dev} vs native {q_nat}")
-    check(q_nat["ng50"] == 0 or 0.95 <= q_dev["ng50"] / q_nat["ng50"] <= 1.06,
-          f"NG50 {q_dev} vs native {q_nat}")
-    busy = device_busy_ms(prof)
+    nat = {"best_prob": best_nat,
+           "quality": quality(truth, os.path.join(d, "nat.fasta"))}
+    q_dev = assembly_bound(d, truth, "dev", best_dev, nat)
     diff = first_difference(dev_tr, nat_tr)
     res = {"iterations": iterations, "dev_wall_s": dev_wall,
            "nat_wall_s": nat_wall, "dev_moves_per_s": iterations / dev_wall,
            "nat_moves_per_s": iterations / nat_wall,
            "best_prob": best_dev, "nat_best_prob": best_nat,
-           "quality": q_dev, "nat_quality": q_nat,
+           "quality": q_dev, "nat_quality": nat["quality"],
            "pacbio_cells": summary["pacbio_cells"], "launches": launches,
            "device_busy_ms": busy,
            "device_busy_share": None if busy is None
@@ -1553,7 +1634,10 @@ def phase_models(device, d, world=(2_800_000, 300_000), reps=5):
               "host_scorer_s": host_s, "model_s": paired_s,
               "k_cap": max(len(p) for rs in mates for p in rs.positions)}
     print("  paired " + json.dumps(paired), flush=True)
-    return {"single": single, "paired": paired, "K4a": k4a, "c12": c12}
+    return {"single": single, "paired": paired, "K4a": k4a, "c12": c12,
+            "world": {"genome": genome, "cands": cands, "rmax": st["rmax"],
+                      "n_reads": n_reads, "score": score,
+                      "zero_reads": zeros}}
 
 
 # ----------------------------------------------------------------- phase 10
@@ -1634,7 +1718,7 @@ def mixed_batch_split(device, d, n_windows=64, reps=5):
     return res
 
 
-def phase_mixed_anneal(device, d, iterations=200, check_iterations=50,
+def phase_mixed_anneal(device, d, iterations=100, check_iterations=25,
                        timeout=450):
     """The phase-4 world with its frag library quality-trimmed: 20 % of
     each mate file's reads cut to 60-99 bp (own generator, seed 29).  The
@@ -1648,7 +1732,7 @@ def phase_mixed_anneal(device, d, iterations=200, check_iterations=50,
     rng = np.random.default_rng(29)
     trimmed = [trim_fastq(os.path.join(d, f"f{k}.fq"),
                           os.path.join(d, f"t{k}.fq"), rng) for k in (1, 2)]
-    res, diff = anneal_against_cpu_and_bfs(
+    res, diff, _tr = anneal_against_cpu_and_bfs(
         device, d, iterations, check_iterations, timeout,
         ("extend_exact",), frag="t",
         tag="mixed_")
@@ -1663,23 +1747,323 @@ def phase_mixed_anneal(device, d, iterations=200, check_iterations=50,
     return res
 
 
-def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed):
+# ----------------------------------------------------------------- phase 11
+def traces_agree(got, want):
+    """How the itnum trace ``got`` agrees with ``want``: "identical";
+    "within 1e-9" when every line has the same fields but for the three
+    probabilities, each within 1e-9 relative plus one unit of the printed
+    sixth decimal (a last-bit difference may round either way), so the
+    same moves were accepted; else None."""
+    if got == want:
+        return "identical"
+    if len(got) != len(want):
+        return None
+    for a, b in zip(got, want):
+        fa, fb = a.split(), b.split()
+        if len(fa) != len(fb):
+            return None
+        for i, (x, y) in enumerate(zip(fa, fb)):
+            if x != y and (i not in (7, 8, 9) or abs(float(x) - float(y))
+                           > 1e-6 + 1e-9 * abs(float(y))):
+                return None
+    return "within 1e-9"
+
+
+def scoring_probes(spent, moves, keep):
+    """Wrap, for one in-process run, the host scoring steps (timed into
+    ``spent``: the scoring call, the paired staging, the host pair loop)
+    and the paired device scorer's bucket products (each call's scorer
+    and buckets recorded into ``moves``, one list per scoring call, the
+    last ``keep`` calls kept).  Returns a function that undoes it."""
+    from gaml_tpu_torch.parallel import paired_sharded
+    from gaml_tpu_torch.scoring import calculator, paired
+
+    scorer = paired_sharded.ShardedPairedScorer
+    sites = {"calc_prob": (calculator.ProbCalculator, "calc_prob"),
+             "staging": (paired_sharded, "stage_paired_rows"),
+             "host_pairs": (paired, "calc_score_for_path_inc"),
+             "products": (scorer, "read_totals"),
+             "products_inc": (scorer, "apply_buckets")}
+    saved = {k: getattr(mod, name) for k, (mod, name) in sites.items()}
+
+    def timed(key):
+        fn = saved[key]
+
+        def wrapper(*args, **kw):
+            if key == "calc_prob":
+                moves.append([])
+                del moves[:-keep]
+            elif key == "products":
+                moves[-1].append((args[0], args[1]))
+            elif key == "products_inc":
+                moves[-1].append((args[0], args[3]))
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    for key, (mod, name) in sites.items():
+        setattr(mod, name, timed(key))
+
+    def undo():
+        for key, (mod, name) in sites.items():
+            setattr(mod, name, saved[key])
+    return undo
+
+
+def paired_flag(device, d, flag, iterations, want, timeout,
+                second_iterations, window, keep):
+    """One paired flag on the aureus world in ``d``: a run through
+    ``python -m gaml_tpu_torch.cli`` (its anneal wall gives ms per move)
+    and a second in this process, of ``second_iterations``, under the
+    profiler over ``window`` (cli_in_process: the device's busy share),
+    with each move's wall (ms per warm move: moves 2 to n of this run and
+    of ``want``'s in-process run, n the shorter; the first move's scoring
+    calls align every start walk's windows), the host scoring's share and the bucket products of its last ``keep`` scoring
+    calls (timed after it with CUDA events, call by call).  The second
+    trace equals the first over its length, and the first equals
+    ``want``'s (the host scorer's) or lies within traces_agree's 1e-9,
+    with equal .walks."""
+    name = flag[2:].replace("-", "_")
+
+    def walks(tag):
+        with open(os.path.join(d, f"{tag}.walks"), "rb") as f:
+            return f.read()
+
+    text_a, wall_a = run_cli("gaml_tpu_torch.cli",
+                             write_config(d, name + "_a", iterations),
+                             ["--device", str(device), flag], timeout)
+    sum_a = summary_of(text_a)
+    spent, moves = {}, []
+    undo = scoring_probes(spent, moves, keep)
+    try:
+        text_b, sum_b, _wall, busy, span, move_s = cli_in_process(
+            device, d, write_config(d, name + "_b", second_iterations),
+            [flag], env={"GAML_DEV_MIN_BASES": "0"}, window=window)
+    finally:
+        undo()
+    tr_a, tr_b = trace(text_a), trace(text_b)
+    check(len(tr_a) >= iterations, f"{flag}: {len(tr_a)} itnum lines")
+    check(tr_a[:len(tr_b)] == tr_b,
+          f"{flag}: two runs differ: {first_difference(tr_a, tr_b)}")
+    how = traces_agree(tr_a, want["trace"])
+    check(how is not None, f"{flag}: trace against the host scorer's: "
+          f"{first_difference(tr_a, want['trace'])}")
+    check(walks(name + "_a") == want["walks"],
+          f"{flag}: .walks differ from the host scorer's")
+    check(device.type != "cuda" or sum_a["launches"]["extend_exact"] > 0,
+          f"{flag}: no extension launch: {sum_a}")
+    per_move = []
+    for mv in moves:
+        if mv:
+            n = max(int(np.max(b["rid"])) for _sc, bs in mv for b in bs) + 1
+            per_move.append(timer(device, lambda: [
+                sc.read_totals(bs, n, MPB, MPS) for sc, bs in mv], 3))
+    anneal_b = sum_b["anneal_s"]
+    warm = min(len(move_s), len(want["move_s"]))
+    res = {"iterations": iterations, "wall_s": wall_a,
+           "second_iterations": second_iterations,
+           "ms_per_move": sum_a["anneal_s"] / iterations * 1e3,
+           "host_ms_per_move": want["anneal_s"] / want["iterations"] * 1e3,
+           "first_move_ms": move_s[0] * 1e3,
+           "host_first_move_ms": want["move_s"][0] * 1e3,
+           "warm_moves": [2, warm],
+           "warm_ms_per_move": float(np.mean(move_s[1:warm])) * 1e3,
+           "host_warm_ms_per_move": float(np.mean(
+               want["move_s"][1:warm])) * 1e3,
+           "vs_host_trace": how, "second_run": f"identical over "
+           f"{len(tr_b)} itnum lines",
+           "profiled_ms_per_move": anneal_b / second_iterations * 1e3,
+           "scoring_share": spent["calc_prob"] / anneal_b,
+           "host_staging_share": (spent.get("staging", 0.0)
+                                  + spent.get("host_pairs", 0.0)) / anneal_b,
+           "profiled_moves": window or [0, second_iterations],
+           "device_busy_ms": busy,
+           "device_busy_share": None if busy is None else busy / 1e3 / span,
+           "bucket_products_ms_per_call": float(np.median(per_move))
+           if per_move else None,
+           "bucket_products_calls_timed": len(per_move),
+           "buckets_per_call": float(np.median([
+               sum(len(bs) for _sc, bs in m) for m in moves if m]))
+           if per_move else 0,
+           "launches": {k: sum_a["launches"][k] + sum_b["launches"][k]
+                        for k in ("extend_exact", "extend_exact_staged")}}
+    print(f"  {flag} " + json.dumps(res), flush=True)
+    return res
+
+
+def single_end_world(device, world=(2_800_000, 300_000)):
+    """Phase 9's single-end world when phase 9 did not run: host
+    candidates on phase 3's world and SingleEndModel's score of them."""
+    from gaml_tpu_torch.models import SingleEndModel
+    from gaml_tpu_torch.ops.extend import stage_candidates
+
+    genome_len, n_reads = world
+    genome, reads = make_world(genome_len, n_reads)
+    cands = host_candidates(make_bundle(reads), reads, genome)
+    score, zeros, _ = SingleEndModel(
+        MATCH, MISMATCH, MPB, MPS, device=device).score_candidates(
+        genome, cands, n_reads, [READ_LEN] * n_reads, genome_len)
+    rmax = stage_candidates(genome, [c.genome_pos for c, _ in cands],
+                            [c.read_pos for c, _ in cands],
+                            [r for _, r in cands], device="cpu")["rmax"]
+    return {"genome": genome, "cands": cands, "rmax": rmax,
+            "n_reads": n_reads, "score": score, "zero_reads": zeros}
+
+
+def phase_device_scorers(device, d, d_pb, pb_genome, anneal=None, pb=None,
+                         models=None, iterations=500, second_iterations=210,
+                         window=(100, 100), full_iterations=50,
+                         full_second_iterations=13, full_window=(1, 10),
+                         pb_iterations=400, timeout=450):
+    """The JAX CLI's four device scorers through the port's CLI on
+    ``device``.  On the aureus world in ``d``: --paired-device-inc and
+    --device-state over phase 4's iterations, their second runs over
+    ``second_iterations`` profiled over ``window``; --paired-device
+    (every walk restaged on every scoring call) over ``full_iterations``,
+    its second run over ``full_second_iterations`` profiled over
+    ``full_window``; each flag in two runs (paired_flag) held to the
+    port's default run (the host incremental scorer: phase 4's, and one
+    of ``full_iterations`` here, in this process, whose moves' walls give
+    the host's ms per warm move).  On the
+    PacBio world in ``d_pb``: --pacbio-device, every forward cell on K5
+    ("mesh"), held to phase 7's native route by assembly_bound.  Then
+    sharded_single_end_score on phase 9's candidates against
+    SingleEndModel's score (within 1e-12, zero reads equal).  Without the
+    earlier phases' results (chip_ab.py) their reference runs are made
+    here."""
+    from gaml_tpu_torch.core import dna
+    from gaml_tpu_torch.parallel import sharded
+
+    def default_run(name, its):
+        text, _ = run_cli("gaml_tpu_torch.cli", write_config(d, name, its),
+                          ["--device", str(device)], timeout)
+        with open(os.path.join(d, f"{name}.walks"), "rb") as f:
+            walks = f.read()
+        return {"trace": trace(text), "iterations": its, "walks": walks,
+                "anneal_s": summary_of(text)["anneal_s"]}
+
+    if anneal is None:
+        ref = default_run("dev", iterations)
+    else:
+        iterations = anneal["iterations"]
+        with open(os.path.join(d, "dev.walks"), "rb") as f:
+            ref = {"trace": anneal["trace"], "iterations": iterations,
+                   "walks": f.read(), "anneal_s": anneal["dev_anneal_s"]}
+    text, summary, _wall, _busy, _span, move_s = cli_in_process(
+        device, d, write_config(d, "dev_short", full_iterations), [],
+        env={"GAML_DEV_MIN_BASES": "0"})
+    with open(os.path.join(d, "dev_short.walks"), "rb") as f:
+        ref_short = {"trace": trace(text), "iterations": full_iterations,
+                     "walks": f.read(), "anneal_s": summary["anneal_s"],
+                     "move_s": move_s}
+    check(ref_short["trace"] == ref["trace"][:len(ref_short["trace"])],
+          "the default run's trace is not a prefix of the longer run's")
+    ref["move_s"] = move_s
+    res = {"host_ms_per_move": ref["anneal_s"] / iterations * 1e3}
+    launches = {"extend_exact": 0, "extend_exact_staged": 0,
+                "banded_forward": 0}
+    for flag, its, want, its_b, win, keep in (
+            ("--paired-device-inc", iterations, ref, second_iterations,
+             window, 100),
+            ("--device-state", iterations, ref, second_iterations, window,
+             100),
+            ("--paired-device", full_iterations, ref_short,
+             full_second_iterations, full_window, 12)):
+        res[flag] = paired_flag(device, d, flag, its, want, timeout, its_b,
+                                win, keep)
+        for k, v in res[flag]["launches"].items():
+            launches[k] += v
+
+    truth = dna.decode_seq(pb_genome)
+    if pb is None:
+        nat_tr, _ = native_pacbio_run(d_pb, pb_iterations, timeout)
+        pb = {"nat_best_prob": float(nat_tr[-1].split()[9]),
+              "nat_quality": quality(truth, os.path.join(d_pb, "nat.fasta"))}
+    text, summary, wall, busy, _span, _moves = cli_in_process(
+        device, d_pb, write_pacbio_config(d_pb, "mesh", pb_iterations),
+        ["--pacbio-device"])
+    cells = summary["pacbio_cells"]
+    pb_launches = summary["launches"]["banded_forward"]
+    check(set(cells) == {"mesh"} and cells["mesh"] > 0,
+          f"--pacbio-device: forward cells {cells}")
+    check(device.type != "cuda" or pb_launches > 0,
+          f"--pacbio-device: K5 was not launched: {summary}")
+    tr = trace(text)
+    check(len(tr) >= pb_iterations, f"--pacbio-device: {len(tr)} lines")
+    best = float(tr[-1].split()[9])
+    q = assembly_bound(d_pb, truth, "mesh", best,
+                       {"best_prob": pb["nat_best_prob"],
+                        "quality": pb["nat_quality"]})
+    launches["banded_forward"] += pb_launches
+    res["--pacbio-device"] = {
+        "iterations": pb_iterations, "wall_s": wall,
+        "ms_per_move": summary["anneal_s"] / pb_iterations * 1e3,
+        "best_prob": best, "nat_best_prob": pb["nat_best_prob"],
+        "quality": q, "pacbio_cells": cells, "launches": pb_launches,
+        "device_busy_ms": busy,
+        "device_busy_share": None if busy is None
+        else busy / 1e3 / summary["anneal_s"]}
+    print("  --pacbio-device " + json.dumps(res["--pacbio-device"]),
+          flush=True)
+
+    w = models["world"] if models is not None else single_end_world(device)
+    n_reads = w["n_reads"]
+    shard = [[(c.read_id, c.genome_pos, c.read_pos, r) for c, r in w["cands"]]]
+    args = (float(np.log(MATCH)), float(np.log(MISMATCH)), len(w["genome"]),
+            MPB, MPS, w["rmax"])
+    counts = reset_launches()
+    t0 = time.perf_counter()
+    staged, lens_mask, n_local = sharded.stage_sharded(
+        w["genome"], shard, w["rmax"], [np.full(n_reads, READ_LEN)],
+        device=device)
+    sync(device)
+    stage_s = time.perf_counter() - t0
+    score, zeros = (x.item() for x in sharded.sharded_single_end_score(
+        staged, lens_mask, *args, n_local, n_reads))
+    staged_launches = counts["extend_exact_staged"]
+    check(int(zeros) == w["zero_reads"] and close(score, w["score"], 1e-12),
+          f"sharded_single_end_score ({score}, {zeros}) vs the model "
+          f"({w['score']}, {w['zero_reads']})")
+    check(device.type != "cuda" or (staged_launches == 1 and
+                                    counts["extend_exact"] == 0),
+          f"sharded_single_end_score launches {counts}")
+    launches["extend_exact_staged"] += staged_launches
+    res["single_end"] = {
+        "candidates": len(w["cands"]), "score": score, "zero_reads":
+        int(zeros), "rel_vs_model": abs(score - w["score"]) / abs(w["score"]),
+        "staging_s": stage_s, "ms": timer(device, lambda: float(
+            sharded.sharded_single_end_score(staged, lens_mask, *args,
+                                             n_local, n_reads)[0]),
+            5, host_clock=True),
+        "launches": staged_launches}
+    print("  single_end " + json.dumps(res["single_end"]), flush=True)
+    res["launches"] = launches
+    return res
+
+
+def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed,
+                 scorers):
     """{"kernels": [...]}: one entry per TPU kernel with the numbers of
     the phases that measured it.  K1-K4 are all served by one kernel,
     the exact two-direction extension.  Launches come from the runs of
     the main paths (counts reset just before each): K1/K2/K3 phase 4's
     anneal (uniform read sets, the resident loader: K1 + K2's function,
-    and K3's, the JAX package's route under GAML_SWAR_BACKWARD=0),
-    K4a/K4b the models of phase 9 plus phase 10's anneal, K5 phase 7, K6
-    its tool.  The K1/K2 entries carry the resident loader's phase-1
-    numbers on the rescore's world and, beside them, the staged route it
-    replaced on the same candidates.  K3's entry is the resident loader
-    on phase 8's ragged draw, K4b's the staged loader on that draw at rmax 96
-    (n % 1024 == 0, K4b's route on the TPU), K4a's its staged loader at
-    phase 9's model forward, each with its bound counted both ways (the
-    share uses the algorithm's count) and the single-direction stacked
-    launch the port made before beside it.  No PyTorch call computes a banded
-    min-plus or log-space forward DP, so library_ms is null throughout.
+    and K3's, the JAX package's route under GAML_SWAR_BACKWARD=0) plus
+    phase 11's paired-flag anneals, K4a/K4b the models of phase 9 plus
+    phase 10's anneal and phase 11's sharded_single_end_score, K5 phase 7
+    plus phase 11's --pacbio-device anneal, K6 its tool (each entry keeps
+    phase 11's share as ``launches_phase11``).  The K1/K2 entries carry
+    the resident loader's phase-1 numbers on the rescore's world and,
+    beside them, the staged route it replaced on the same candidates.
+    K3's entry is the resident loader on phase 8's ragged draw, K4b's the
+    staged loader on that draw at rmax 96 (n % 1024 == 0, K4b's route on
+    the TPU), K4a's its staged loader at phase 9's model forward, each
+    with its bound counted both ways (the share uses the algorithm's
+    count) and the single-direction stacked launch the port made before
+    beside it.  No PyTorch call computes a banded min-plus or log-space
+    forward DP, so library_ms is null throughout.
     ``card`` gives each band kernel's registers, spills and DPX
     instruction count, and K5's registers, spills and MUFU count per
     width (phase 0).  K5's max_abs_err is against the float32 plain
@@ -1688,12 +2072,14 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     more = ("share", "rows", "lane_ops", "bytes", "bound_ms_stacked_count")
     res = kern["extend_exact"]
-    uniform = anneal["launches"]["extend_exact"]
+    p11 = scorers["launches"]
+    uniform = anneal["launches"]["extend_exact"] + p11["extend_exact"]
     k1k2 = dict({k: res[k] for k in keys + more},
                 staged_route_ms=res["staged_route_ms"],
                 stage_views_ms=res["stage_views_ms"], launches=uniform,
-                loader="resident")
-    k4 = mixed["launches"]["extend_exact"] + models["K4a"]["launches"]
+                launches_phase11=p11["extend_exact"], loader="resident")
+    k4 = mixed["launches"]["extend_exact"] + models["K4a"]["launches"] \
+        + p11["extend_exact_staged"]
 
     def exact_entry(res, launches, **extra):
         return dict({k: res[k] for k in keys + more}, launches=launches,
@@ -1707,16 +2093,19 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed):
                            "swar_cost_accept"]),
             "K3": exact_entry(
                 exact["exact_resident"], uniform,
+                launches_phase11=p11["extend_exact"],
                 loader="resident", read_lens=exact["exact_resident"][
                     "read_lens"], dp_rows_exact_ms=exact["dp_rows_exact"][
                     "ms"]),
             "K4a": exact_entry(
-                k4a, k4, loader="staged", stacked_ms=k4a["stacked"]["ms"],
+                k4a, k4, launches_phase11=p11["extend_exact_staged"],
+                loader="staged", stacked_ms=k4a["stacked"]["ms"],
                 stacked_bound_ms=k4a["stacked"]["bound_ms"],
                 resident_ms=k4a["resident"]["ms"],
                 resident_bound_ms=k4a["resident"]["bound_ms"]),
             "K4b": exact_entry(
-                exact["exact_staged"], k4, loader="staged",
+                exact["exact_staged"], k4,
+                launches_phase11=p11["extend_exact_staged"], loader="staged",
                 stacked_ms=exact["dp_rows_exact_stacked"]["ms"]),
             "K6": exact["K6"]}
     kern["K5"] = {
@@ -1738,7 +2127,8 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed):
                       mufu_bound_ms_w128=fwd[128]["mufu_bound_ms"],
                       compiled=card["banded_forward_w64"],
                       compiled_w128=card["banded_forward_w128"],
-                      launches=pb["launches"])
+                      launches=pb["launches"] + p11["banded_forward"],
+                      launches_phase11=p11["banded_forward"])
     return {"kernels": [
         dict({k: kern[tpu][k] for k in keys}, name=name, tpu_kernel=tpu,
              route="cuda", source=source, replaces=replaces,
@@ -1775,28 +2165,31 @@ def main():
     run_phase("2 rescore 400 kb", phase_rescore, device, 400_000, 100_000,
               launches=rescore_launches)
     run_phase("3 rescore 2.8 Mb", phase_rescore, device, 2_800_000, 300_000)
-    with tempfile.TemporaryDirectory(prefix="gaml_smoke_") as d_aureus:
+    with tempfile.TemporaryDirectory(prefix="gaml_smoke_") as d_aureus, \
+            tempfile.TemporaryDirectory(prefix="gaml_smoke_pb_") as d_pb:
         t0 = time.perf_counter()
         world = write_anneal_world(d_aureus)
         world += (time.perf_counter() - t0,)
         anneal = run_phase("4 anneal", phase_anneal, device, d_aureus, world)
         fwd = run_phase("5 K5", phase_forward_kernel, device)
-        with tempfile.TemporaryDirectory(prefix="gaml_smoke_pb_") as d:
-            genome = write_pacbio_world(d)
-            run_phase("6 pacbio scoring", phase_pacbio_scoring, device, d)
-            pb = run_phase("7 pacbio anneal", phase_pacbio_anneal, device,
-                           d, genome)
+        genome = write_pacbio_world(d_pb)
+        run_phase("6 pacbio scoring", phase_pacbio_scoring, device, d_pb)
+        pb = run_phase("7 pacbio anneal", phase_pacbio_anneal, device, d_pb,
+                       genome)
         exact = run_phase("8 exact DP", phase_exact, device)
         models = run_phase("9 device models", phase_models, device,
                            d_aureus)
         mixed = run_phase("10 mixed-length anneal", phase_mixed_anneal,
                           device, d_aureus)
+        scorers = run_phase("11 device scorers", phase_device_scorers,
+                            device, d_aureus, d_pb, genome, anneal, pb,
+                            models)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "gaml_tpu"))
     check(not foreign, f"modules of jax or the JAX package were imported: "
           f"{foreign}")
     print(json.dumps(kernels_line(card, kern, anneal, fwd, pb, exact, models,
-                                  mixed)), flush=True)
+                                  mixed, scorers)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,6 +2,8 @@
 
 Usage: python -m gaml_tpu_torch.cli <config> [--backend bfs|device]
                                     [--device cuda|cpu] [--resume prefix]
+                                    [--paired-device | --paired-device-inc]
+                                    [--device-state] [--pacbio-device]
 
 The same run as ``python -m gaml_tpu.cli``, on the port's own host layers
 and torch.  ``--backend`` picks the short-read extension: ``device``
@@ -11,15 +13,27 @@ PacBio read sets send forward-DP batches of GAML_PB_DEVICE_MIN_CELLS
 cells or more to ``--device`` under either backend, and smaller ones to
 the native host kernel.  With ``--device cpu`` the kernels' plain torch
 versions run instead of the CUDA kernels; ``--device cuda`` on a machine
-without a card exits with an error.  The last line of output reports the
-device work: window batches, candidates, PacBio forward-DP cells by route
-and kernel launches.
+without a card exits with an error.
+
+The JAX CLI's device scorers run on ``--device`` (parallel/, in float64):
+``--paired-device`` scores paired sets with the full rescore on the
+device (every walk restaged every move), ``--paired-device-inc`` with the
+incremental rescore over device-resident per-read totals,
+``--device-state`` keeps the host incremental scorer's running totals on
+the device, and ``--pacbio-device`` runs every PacBio forward-DP batch on
+K5 (cells under "mesh") and the per-read reduction on the device.
+``--distributed`` (multi-process scoring) is not ported yet.
+
+The last line of output reports the device work: window batches,
+candidates, PacBio forward-DP cells by route, kernel launches and the
+anneal's wall seconds.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+import time
 
 from .config import load_config, prepare_read_sets
 from .core.io import load_lastgraph, output_paths_to_file
@@ -28,14 +42,8 @@ from .optimize.anneal import Optimizer
 from .optimize.settings import AssemblySettings
 from .scoring.calculator import ProbCalculator
 
-# options of the JAX package's CLI whose device code is not ported yet
-_NOT_PORTED = {
-    "--paired-device": "ROADMAP A10 (parallel/paired_sharded.py)",
-    "--paired-device-inc": "ROADMAP A10 (parallel/paired_sharded.py)",
-    "--device-state": "ROADMAP A10 (parallel/device_state.py)",
-    "--pacbio-device": "ROADMAP A10 (parallel/pacbio_sharded.py)",
-    "--distributed": "ROADMAP A10 (parallel/distributed.py)",
-}
+# the option of the JAX package's CLI whose device code is not ported yet
+_NOT_PORTED = {"--distributed": "ROADMAP A10b (parallel/distributed.py)"}
 
 
 def get_longest_read(single, paired, pacbio) -> int:
@@ -109,12 +117,24 @@ def main(argv=None) -> int:
                          "kernels) or cpu (their plain torch versions)")
     ap.add_argument("--resume", default="",
                     help="resume from <prefix>.ckpt")
-    for flag in _NOT_PORTED:
-        if flag == "--distributed":
-            ap.add_argument(flag, default="", help="not ported yet")
-        else:
-            ap.add_argument(flag, action="store_true",
-                            help="not ported yet")
+    ap.add_argument("--paired-device", action="store_true",
+                    help="score paired read sets with the full rescore on "
+                         "--device (parallel.paired_sharded) instead of "
+                         "the host incremental scorer")
+    ap.add_argument("--paired-device-inc", action="store_true",
+                    help="incremental paired scoring on --device: diff the "
+                         "walk multiset on the host, run only the changed "
+                         "walks' pair products on the device and add them "
+                         "into device-resident running totals")
+    ap.add_argument("--device-state", action="store_true",
+                    help="keep the paired incremental scorer's per-read "
+                         "running totals on --device "
+                         "(parallel.device_state)")
+    ap.add_argument("--pacbio-device", action="store_true",
+                    help="run every PacBio forward-DP batch on --device "
+                         "and the per-read reduction there "
+                         "(parallel.pacbio_sharded)")
+    ap.add_argument("--distributed", default="", help="not ported yet")
     args = ap.parse_args(argv)
 
     for flag, item in _NOT_PORTED.items():
@@ -156,6 +176,13 @@ def main(argv=None) -> int:
     advice_pacbio = [rs for cfg, rs in pacbio if cfg.advice]
     prepare_reads(single, paired, pacbio, graph)
     longest_read = get_longest_read(single, paired, pacbio)
+    if (args.paired_device or args.paired_device_inc) and paired:
+        pc.enable_sharded_paired(device, incremental=args.paired_device_inc)
+    if args.pacbio_device and pacbio:
+        pc.enable_sharded_pacbio(device)
+    if args.device_state and paired:
+        # needs read lengths: after prepare_reads
+        pc.enable_device_scoring_state(device)
 
     opt = Optimizer(graph, pc, settings, advice_paired, advice_pacbio,
                     longest_read)
@@ -163,7 +190,9 @@ def main(argv=None) -> int:
         from .optimize.checkpoint import load_checkpoint
 
         paths = load_checkpoint(opt, args.resume)
+    t0 = time.perf_counter()
     opt.run(paths)
+    anneal_s = time.perf_counter() - t0
     short = {id(rs): rs for rs in [rs for _c, rs in single]
              + [rs for _c, pair in paired for rs in pair]}
     aligners = [rs.aligner for rs in short.values()]
@@ -182,7 +211,8 @@ def main(argv=None) -> int:
         "batches": sum(a.device_batches for a in aligners),
         "candidates": sum(a.device_candidates for a in aligners),
         "pacbio_cells": pacbio_cells,
-        "launches": launches}), flush=True)
+        "launches": launches,
+        "anneal_s": anneal_s}), flush=True)
     return 0
 
 

@@ -86,3 +86,16 @@ class ForwardDeviceEngine:
             self._upload(steps), meta[1], meta[2], meta[3], meta[4],
             float(log_match), float(log_mismatch), int(width))
         return out.cpu().numpy().astype(np.float64)
+
+    def forward_jobs(self, seq, reads, rlens, centers, gstarts, glens,
+                     log_match, log_mismatch, width, rid, strand):
+        """forward() of one batch in scoring/pacbio.py::job_arrays'
+        layout: from the resident rows when there are any and every job
+        has a read id (``rid`` >= 0), else staged densely from ``reads``."""
+        resident = self.rows is not None and bool((rid >= 0).all())
+        return self.forward(
+            seq, guide_steps(centers), centers[:, 0], gstarts, glens, rlens,
+            log_match, log_mismatch, width,
+            rid=rid if resident else None,
+            strand=strand if resident else None,
+            reads=None if resident else reads)

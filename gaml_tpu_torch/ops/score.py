@@ -102,10 +102,15 @@ def reduce_read_probs(read_probs: torch.Tensor, lens: torch.Tensor,
     log(read_prob) - log(2 * total_len), floored at min_prob_start +
     min_prob_per_base * len in log space (in linear float32 the floor is
     0 from len ~135 at the default floors, where the JAX reduction counts
-    no floored read and scores -inf, ROADMAP C10), summed in float64.
+    no floored read and scores -inf, ROADMAP C10), summed in float64.  A
+    total at or below zero (a running total that an erase left at 0, or a
+    rounding step under it) has log -inf and floors, as on the host
+    (scoring/paired.py::_state_log_probs), where torch.log would give NaN.
     Returns 0-dim tensors (score, zero_reads) and read_probs."""
     tl = max(int(total_len), 1)
-    log_probs = torch.log(read_probs.to(torch.float64)) - math.log(2 * tl)
+    p = read_probs.to(torch.float64)
+    log_probs = torch.where(p > 0, torch.log(p), -math.inf) \
+        - math.log(2 * tl)
     log_floor = min_prob_start + min_prob_per_base * lens.to(torch.float64)
     floored = log_probs < log_floor
     zero_reads = floored.sum()

@@ -6,9 +6,10 @@ paired sets via the incremental scorer (one persistent ScoringState each),
 PacBio sets via the banded-forward scorer.  ``zeros`` collects
 (floored_read_count, n_reads) per set.
 
-The mesh scorers (sharded paired and PacBio scoring, the device-resident
-paired state) are not ported yet: their ``enable_*`` methods raise,
-naming ROADMAP A10.
+The ``enable_*`` methods move a kind of read set onto the device scorers
+of ``parallel/`` (the JAX package's mesh scorers, on one device): the
+paired full or incremental rescore, the paired running totals, the
+PacBio forward DP and reduction.
 """
 from __future__ import annotations
 
@@ -18,9 +19,6 @@ from .config import PairedReadConfig, SingleReadConfig
 from .pacbio_score import calc_score_for_pacbio
 from .paired import ScoringState, calc_score_for_paths_incremental
 from .single import calc_score_for_paths_single
-
-_NOT_PORTED = ("{} is not ported to gaml_tpu_torch yet: ROADMAP A10 "
-               "(parallel/{})")
 
 
 class ProbCalculator:
@@ -33,6 +31,9 @@ class ProbCalculator:
         self.pacbio_reads = list(pacbio_reads)
         self.graph = graph
         self.paired_scoring_states = [ScoringState() for _ in self.paired_reads]
+        self._sharded_paired = None
+        self._sharded_scorers = []
+        self._sharded_pacbio = None
 
     def calc_prob(self, paths: Sequence[Sequence[int]],
                   zeros: Optional[List[Tuple[int, int]]] = None):
@@ -56,23 +57,35 @@ class ProbCalculator:
             if zeros is not None:
                 zeros.append((zero, rs.get_number_of_reads()))
         for ind, (cfg, (rs1, rs2)) in enumerate(self.paired_reads):
-            score, zero, total_len = calc_score_for_paths_incremental(
-                self.graph, paths, rs1, rs2, cfg.insert_mean,
-                cfg.insert_std, self.paired_scoring_states[ind],
-                no_cov_penalty=cfg.penalty_constant, exp_cov_move=cfg.step,
-                use_all_to_cov=True,
-                min_prob_per_base=cfg.min_prob_per_base,
-                min_prob_start=cfg.min_prob_start, keys=keys)
+            if self._sharded_paired is not None:
+                score, zero, total_len = self._calc_paired_sharded(
+                    ind, cfg, rs1, rs2, paths, keys)
+            else:
+                score, zero, total_len = calc_score_for_paths_incremental(
+                    self.graph, paths, rs1, rs2, cfg.insert_mean,
+                    cfg.insert_std, self.paired_scoring_states[ind],
+                    no_cov_penalty=cfg.penalty_constant,
+                    exp_cov_move=cfg.step, use_all_to_cov=True,
+                    min_prob_per_base=cfg.min_prob_per_base,
+                    min_prob_start=cfg.min_prob_start, keys=keys)
             prob += score * cfg.weight
             if zeros is not None:
                 zeros.append((zero, rs1.get_number_of_reads()))
         for cfg, rs in self.pacbio_reads:
-            score, zero, total_len = calc_score_for_pacbio(
-                self.graph, paths, rs,
-                no_cov_penalty=cfg.penalty_constant,
-                exp_cov_move=cfg.step,
-                min_prob_per_base=cfg.min_prob_per_base,
-                min_prob_start=cfg.min_prob_start)
+            kw = dict(no_cov_penalty=cfg.penalty_constant,
+                      exp_cov_move=cfg.step,
+                      min_prob_per_base=cfg.min_prob_per_base,
+                      min_prob_start=cfg.min_prob_start)
+            if self._sharded_pacbio is not None:
+                from ..parallel.pacbio_sharded import (
+                    calc_score_for_pacbio_sharded)
+
+                score, zero, total_len = calc_score_for_pacbio_sharded(
+                    self.graph, paths, rs, scorer=self._sharded_pacbio,
+                    **kw)
+            else:
+                score, zero, total_len = calc_score_for_pacbio(
+                    self.graph, paths, rs, **kw)
             prob += score * cfg.weight
             if zeros is not None:
                 zeros.append((zero, rs.get_number_of_reads()))
@@ -169,19 +182,71 @@ class ProbCalculator:
         self.prefetch_candidates(candidates)
         return [self.score(cand) for cand in candidates]
 
-    def enable_sharded_pacbio(self, mesh, dtype=None,
+    def enable_sharded_pacbio(self, device="cuda",
                               forward_on_mesh: bool = True) -> None:
-        """PacBio scoring on a device mesh: not ported yet."""
-        raise NotImplementedError(_NOT_PORTED.format(
-            "sharded PacBio scoring", "pacbio_sharded.py"))
+        """Score PacBio sets on ``device`` (parallel.pacbio_sharded): the
+        per-read log-sum-exp and floored reduction in float64, and, unless
+        forward_on_mesh=False, every forward-DP batch on the read set's
+        K5 engine whatever its size (each read set's ``forward_dispatch``;
+        the cells count under "mesh")."""
+        from ..parallel.pacbio_sharded import ShardedPacbioScorer
 
-    def enable_sharded_paired(self, mesh, dtype=None,
+        self._sharded_pacbio = ShardedPacbioScorer(device)
+        if forward_on_mesh:
+            for _cfg, rs in self.pacbio_reads:
+                rs.forward_dispatch = True
+
+    def enable_sharded_paired(self, device="cuda",
                               incremental: bool = False) -> None:
-        """Paired scoring on a device mesh: not ported yet."""
-        raise NotImplementedError(_NOT_PORTED.format(
-            "sharded paired scoring", "paired_sharded.py"))
+        """Score paired sets on ``device`` (parallel.paired_sharded): pair
+        products, event flags and the floored reduction in float64.
 
-    def enable_device_scoring_state(self, mesh) -> None:
-        """The paired running totals on a device mesh: not ported yet."""
-        raise NotImplementedError(_NOT_PORTED.format(
-            "the device-resident paired state", "device_state.py"))
+        incremental=False: full-rescore semantics on every call (every
+        walk restaged).  incremental=True: per move the walk multiset is
+        diffed on the host and only the changed walks' pair products run
+        on the device, added as signed per-read totals into
+        device-resident running totals (reference CalcScoreForPathsNew,
+        graph.cc:1952-1989)."""
+        self._sharded_paired = (device, incremental)
+        self._sharded_scorers = [None] * len(self.paired_reads)
+
+    def _calc_paired_sharded(self, ind, cfg, rs1, rs2, paths, keys=None):
+        """One paired set's score through its device scorer, made at the
+        first call and reused after."""
+        from ..parallel.paired_sharded import (
+            calc_score_for_paths_incremental_sharded,
+            calc_score_for_paths_paired_sharded, paired_scorer)
+
+        device, incremental = self._sharded_paired
+        scorer = self._sharded_scorers[ind]
+        if scorer is None:
+            scorer = paired_scorer(rs1, rs2, cfg.insert_mean, cfg.insert_std,
+                                   cfg.penalty_constant != 0.0, device)
+            self._sharded_scorers[ind] = scorer
+        kw = dict(no_cov_penalty=cfg.penalty_constant, exp_cov_move=cfg.step,
+                  use_all_to_cov=True,
+                  min_prob_per_base=cfg.min_prob_per_base,
+                  min_prob_start=cfg.min_prob_start, scorer=scorer)
+        if incremental:
+            return calc_score_for_paths_incremental_sharded(
+                self.graph, paths, rs1, rs2, cfg.insert_mean,
+                cfg.insert_std, self.paired_scoring_states[ind], keys=keys,
+                **kw)
+        return calc_score_for_paths_paired_sharded(
+            self.graph, paths, rs1, rs2, cfg.insert_mean, cfg.insert_std,
+            **kw)
+
+    def enable_device_scoring_state(self, device="cuda") -> None:
+        """Keep the paired running per-read totals on ``device``
+        (parallel.device_state); the host arrays stop being maintained
+        (checkpointing gathers from the device)."""
+        from ..parallel.device_state import DeviceScoringState
+
+        for (_cfg, (rs1, rs2)), st in zip(self.paired_reads,
+                                          self.paired_scoring_states):
+            lens = rs1.read_lens_array() + rs2.read_lens_array()
+            dev = DeviceScoringState(rs1.get_number_of_reads(), lens,
+                                     device=device)
+            if len(st.probs):
+                dev.from_host(st.probs)
+            st.device = dev

@@ -28,7 +28,10 @@ kernel (float64), where it is built; otherwise to the port's engine on
 the read set's ``device`` (ops/forward_device.py: the CUDA kernel on a
 CUDA device, its plain torch version on the CPU).  Every route runs at
 the read set's own ``forward_width``.  Cells are counted in ``dp_cells``
-under "cuda", "torch" and "native".
+under "cuda", "torch" and "native".  With ``forward_dispatch`` set on
+the read set (ProbCalculator.enable_sharded_pacbio, the JAX package's
+mesh forward) every batch, whatever its size, runs on the same engine and
+its cells count under "mesh", as in the JAX package.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ import torch
 from ..align.longread import SEED_K, align_long_read, chain_hits, guide_path
 from ..core import dna
 from ..core.io import iter_fastq
-from ..ops.forward_device import ForwardDeviceEngine, guide_steps
+from ..ops.forward_device import ForwardDeviceEngine
 
 K_MIN_ANCHOR_LEN = 80  # reference kMinAnchorLen (graph.cc:31)
 
@@ -338,9 +341,12 @@ class PacbioReadSet:
             prof = self.dp_cells = {}
         lm = float(np.log(self.match_prob))
         lmm = float(np.log(self.mismatch_prob))
+        # forward_dispatch (enable_sharded_pacbio): every batch, whatever
+        # its size, on the engine, counted under "mesh"
+        mesh = getattr(self, "forward_dispatch", False)
 
-        if cells < int(os.environ.get("GAML_PB_DEVICE_MIN_CELLS",
-                                      DEVICE_MIN_CELLS)):
+        if not mesh and cells < int(os.environ.get(
+                "GAML_PB_DEVICE_MIN_CELLS", DEVICE_MIN_CELLS)):
             from ..native import banded_forward_host, get_lib
 
             if get_lib() is not None:
@@ -350,14 +356,10 @@ class PacbioReadSet:
                 return [float(x) for x in out]
 
         eng = self._ensure_fwd_engine()
-        resident = eng.rows is not None and bool((job_rid >= 0).all())
-        out = eng.forward(
-            seq, guide_steps(centers), centers[:, 0], gstarts, glens, rlens,
-            lm, lmm, width,
-            rid=job_rid if resident else None,
-            strand=job_strand if resident else None,
-            reads=None if resident else reads)
-        key = "cuda" if eng.device.type == "cuda" else "torch"
+        out = eng.forward_jobs(seq, reads, rlens, centers, gstarts, glens,
+                               lm, lmm, width, job_rid, job_strand)
+        key = "mesh" if mesh else \
+            "cuda" if eng.device.type == "cuda" else "torch"
         prof[key] = prof.get(key, 0) + cells
         return [float(x) for x in out]
 

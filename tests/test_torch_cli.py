@@ -193,10 +193,9 @@ def test_cli_refuses_missing_cuda_and_unported_options(tmp_path,
     config = write_world(tmp_path, iterations=1)("refuse")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert port_main([config, "--device", "cuda"]) != 0
-    assert port_main([config, "--device", "cpu", "--paired-device"]) != 0
-    assert port_main([config, "--device", "cpu", "--pacbio-device"]) == 2
+    assert port_main([config, "--device", "cuda", "--paired-device"]) != 0
     assert port_main([config, "--device", "cpu",
-                      "--distributed", "localhost:1234"]) != 0
+                      "--distributed", "localhost:1234"]) == 2
 
 
 def write_pacbio_world(tmp_path, iterations=8):

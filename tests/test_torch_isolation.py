@@ -137,7 +137,10 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
     for entry in ("SubpathAligner", "ReadSet", "PacbioReadSet",
                   "prepare_read_sets", "DeviceCandGen", "DeviceExtender",
                   "DeviceRescorer", "LikelihoodModel", "from_params",
-                  "batch_extend_multi", "stage_candidates"):
+                  "batch_extend_multi", "stage_candidates",
+                  "DeviceScoringState", "ShardedPairedScorer",
+                  "ShardedPacbioScorer", "enable_sharded_paired",
+                  "enable_sharded_pacbio", "enable_device_scoring_state"):
         assert entry in names, (entry, sorted(names))
     assert [(q, d) for q, d in found if d != "cuda"] == []
     # the CLI: without --device it asks for the card, and without one it

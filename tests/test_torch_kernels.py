@@ -381,3 +381,117 @@ def test_ragged_draw_inputs_on_cpu():
     for g, s in zip(got, extend_exact_staged(st)):
         assert torch.equal(g, s)
     assert 400 < int(got[0].sum()) < 1100
+
+
+def random_bucket(seed, rows=4096, k=64, n_reads=1500):
+    """A paired bucket in stage_paired_rows' layout: random positions,
+    edit distances and orientations (about a third of the slots empty),
+    innie-near mates so that some pairs qualify, each row of its own walk
+    (a read id repeats), none split, 30 padding rows."""
+    rng = np.random.default_rng(seed)
+    pos1 = rng.integers(0, 4000, (rows, k)).astype(np.int32)
+    pos2 = (pos1 + rng.normal(180, 40, (rows, k))).astype(np.int32)
+    pos1[rng.random((rows, k)) < 0.3] = -1
+    pos2[rng.random((rows, k)) < 0.3] = -1
+    mask = np.arange(rows) < rows - 30
+    pos1[~mask] = pos2[~mask] = -1
+    b = {"pos1": pos1, "pos2": pos2,
+         "ed1": rng.integers(0, 4, (rows, k)).astype(np.int32),
+         "ed2": rng.integers(0, 4, (rows, k)).astype(np.int32),
+         "or1": rng.integers(0, 2, (rows, k)).astype(np.int32),
+         "or2": rng.integers(0, 2, (rows, k)).astype(np.int32),
+         "rid": np.where(mask, rng.integers(0, n_reads, rows), 0
+                         ).astype(np.int32),
+         "walk": np.where(mask, np.arange(rows), -1).astype(np.int32),
+         "len1": np.full(rows, 100, np.int32) * mask,
+         "len2": np.full(rows, 100, np.int32) * mask, "mask": mask,
+         "off1": np.zeros(rows, np.int32), "off2": np.zeros(rows, np.int32),
+         "n2": np.full(rows, k, np.int32) * mask}
+    return b, n_reads
+
+
+@pytest.mark.cuda
+def test_paired_bucket_products_match_cpu_on_card():
+    """The paired device scorer's bucket products on the card against its
+    CPU run on the same bucket: per-read totals and flags equal bit for
+    bit (table lookups, products and adds in one order); bucket_apply
+    adds the same totals, identically in two runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from gaml_tpu_torch.parallel.paired_sharded import ShardedPairedScorer
+
+    b, n = random_bucket(4)
+    exps = np.arange(107, dtype=np.float64)
+    args = (0.96 ** exps, 0.01 ** exps, 0.96 ** exps, 0.01 ** exps, 180.0,
+            20.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sc = ShardedPairedScorer(*args, device=dev)
+        dense, flags = sc.bucket_products(b, n, -0.7, -10.0)
+        runs = []
+        for _ in range(2):
+            probs = torch.zeros(n, dtype=torch.float64, device=dev)
+            sc.bucket_apply(probs, 1.0, b, -0.7, -10.0)
+            runs.append(probs.cpu())
+        assert torch.equal(runs[0], runs[1])
+        assert torch.equal(runs[0], dense.cpu())
+        out[dev] = (dense.cpu(), flags.cpu())
+    (d_cpu, f_cpu), (d_gpu, f_gpu) = out["cpu"], out["cuda"]
+    assert int(f_cpu.bool().sum()) > 100 and int((d_cpu > 0).sum()) > 100
+    assert torch.equal(d_gpu, d_cpu)
+    assert torch.equal(f_gpu, f_cpu)
+
+
+@pytest.mark.cuda
+def test_device_scoring_state_matches_cpu_on_card():
+    """DeviceScoringState on the card against its CPU run on random signed
+    chunks: the running totals equal bit for bit (the fixed-order adds),
+    the reduction within 1e-12."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from gaml_tpu_torch.parallel.device_state import DeviceScoringState
+
+    rng = np.random.default_rng(2)
+    n = 150_000
+    lens = np.full(n, 200)
+    states = [DeviceScoringState(n, lens, device=d) for d in ("cpu", "cuda")]
+    for step in range(8):
+        k = int(rng.integers(1000, 40000))
+        rids = rng.integers(0, n, k).astype(np.int32)
+        ps = rng.random(k) * 10.0 ** rng.integers(-60, -20, k)
+        for st in states:
+            st.apply(rids, ps, 1 if step % 3 != 2 else -1)
+        assert np.array_equal(states[0].to_host(), states[1].to_host())
+        (s0, z0), (s1, z1) = (st.reduce(2_800_000, -0.7, -10.0)
+                              for st in states)
+        assert z0 == z1 and s1 == pytest.approx(s0, rel=1e-12)
+
+
+@pytest.mark.cuda
+def test_pacbio_dispatch_on_card():
+    """A read set with forward_dispatch set (enable_sharded_pacbio) on a
+    small batch: one K5 launch on its resident engine whatever the cell
+    count, cells under "mesh", within K5's bound of the plain version
+    (the same read set on the CPU)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from gaml_tpu_torch.scoring.pacbio import PacbioReadSet
+
+    (read_seqs, seq, rid, strand, rlens, centers, gstarts,
+     glens) = resident_jobs(7, n_reads=40, c=300, seq_len=2000)
+    jobs = [(np.full(n, 6, np.uint8), c, r, st)
+            for n, c, r, st in zip(rlens, centers, rid, strand)]
+    extents = list(zip(gstarts, glens))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        rs = PacbioReadSet("x", "x.fq", 0.85, 0.0375, device=dev)
+        rs._fwd_engine = ForwardDeviceEngine(read_seqs, dev)
+        rs.forward_dispatch = True
+        n0 = forward_cuda.LAUNCHES["banded_forward"]
+        out[dev] = np.asarray(rs._forward_batch(seq, jobs, extents))
+        assert forward_cuda.LAUNCHES["banded_forward"] - n0 == \
+            (dev == "cuda")
+        assert set(rs.dp_cells) == {"mesh"}
+    got, want = out["cuda"], out["cpu"]
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= 1e-4 * np.abs(want) + 1e-3).all()

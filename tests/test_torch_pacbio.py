@@ -107,8 +107,9 @@ def test_dense_staging_equals_resident(tmp_path, monkeypatch):
 
 def test_prewarm_is_noop_and_mesh_dispatch_raises(tmp_path):
     """The port's read set has no prewarm ladder (nothing compiles ahead
-    of the anneal) and runs its batches on its own device; the mesh
-    scorer is not ported and says so."""
+    of the anneal) and runs its batches on its own device;
+    enable_sharded_pacbio sets its forward_dispatch, so that every batch
+    goes to its engine (cells under "mesh"), and nothing raises."""
     gr, rs = world(tmp_path, "pw", 64, n_reads=4)
     assert not hasattr(rs, "prewarm_device")
     assert not hasattr(rs, "prewarm_device_async")
@@ -116,8 +117,13 @@ def test_prewarm_is_noop_and_mesh_dispatch_raises(tmp_path):
     assert PacbioReadSet("x", "x.fq", 0.8, 0.05).device.type == "cuda"
     assert not getattr(rs, "dp_cells", None)
     pc = ProbCalculator([], [], [(None, rs)], gr)
-    with pytest.raises(NotImplementedError, match="A10"):
-        pc.enable_sharded_pacbio(mesh=None)
+    pc.enable_sharded_pacbio(device="cpu")
+    assert rs.forward_dispatch is True
+    assert pc._sharded_pacbio.device.type == "cpu"
+    prep = rs._slow_prepare(gr, WALKS[0], save_to_cache=False)
+    out = rs._forward_batch(prep["seq"], prep["jobs"][:1])
+    assert np.isfinite(out).all()
+    assert set(rs.dp_cells) == {"mesh"}
 
 
 @pytest.mark.parametrize("width", [64, 128])
