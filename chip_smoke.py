@@ -24,9 +24,11 @@ the JAX package is imported.
    port's own CPU engine (which runs the plain versions), with warm
    timings, the stage split (candgen, extension, dedup + reduction) and
    the extension against its plain version on the rescore's own
-   candidates;
+   candidates; and k = 4 assemblies (the genome each, bench.py's batched
+   mode) in one rescore (seg_job, one extension launch) against four
+   single rescores, each job within 1e-12, both timed;
 3. the same at S. aureus scale (2.8 Mb, 300k reads of 100 bp);
-4. an anneal (500 iterations) through ``python -m gaml_tpu_torch.cli
+4. an anneal (300 iterations) through ``python -m gaml_tpu_torch.cli
    --device cuda`` on the 2.8 Mb paired world of
    examples/aureus_like_run.py, held against a ``--device cpu`` run of
    the same config and reported against the port's ``--backend bfs``;
@@ -68,15 +70,25 @@ the JAX package is imported.
 11. the JAX CLI's four device scorers through the port's CLI on the
    card: ``--paired-device-inc`` and ``--device-state`` over phase 4's
    anneal (210 iterations in their second runs), ``--paired-device``
-   over 50 iterations (13 in its second run), each run twice (the
-   second in this process under the profiler, each move timed) and
-   held to the default host incremental scorer's trace and .walks;
+   over 13 iterations, the first two flags each run twice (the second
+   in this process under the profiler, each move timed; --paired-device
+   only so, its second run phase 12's) and held to the default host
+   incremental scorer's trace and .walks;
    ``--pacbio-device`` on phase 6-7's world, every forward cell on K5,
    held to phase 7's assembly bound; ``sharded_single_end_score`` on
    phase 9's candidates against SingleEndModel's score.  Each flag's ms
    per move and per warm move (beside the host scorer's), the bucket
    products' ms per scoring call, the host staging's share and the
-   card's busy share.
+   card's busy share;
+12. multi-process scoring (parallel/distributed.py): the dry run
+   (gaml_tpu_torch.tools.dryrun_distributed) with two ranks over gloo on
+   this card against one rank over NCCL; the four flags through the CLI
+   with ``--distributed`` at world 2 (two ranks over gloo on this card,
+   this script in rank mode, ``--rank``), each rank's trace equal to
+   phase 11's world-1 run of the same config and rank 0's .walks equal,
+   the PacBio run held to phase 7's bound; sharded_single_end_score at
+   world (2, 1) on phase 9's candidates.  Per flag and rank: ms a move
+   beside world 1's, the host staging share, the busy share, launches.
 
 Kernel times are the median over warm calls of CUDA events around one
 call (the launch included).  Each kernel's bound is the larger of its
@@ -88,9 +100,11 @@ kernel and {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository beside it, the script exits non-zero before any
 phase.
 """
+import concurrent.futures
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -537,11 +551,16 @@ def host_total_prob(bundle, genome, n_reads):
     return float(np.log(np.maximum(probs, thr)).mean()), zeros
 
 
-def phase_rescore(device, genome_len, n_reads, reps=10, launches=None):
+def phase_rescore(device, genome_len, n_reads, reps=10, launches=None,
+                  jobs=0):
     """Candgen and rescore on ``device`` against the native query and the
     port's CPU engine; score tolerance 2e-6 relative (float32 sums taken
     in another order).  Then the stage split and the exact extension
-    against its plain version on the rescore's own candidates."""
+    against its plain version on the rescore's own candidates.  With
+    ``jobs`` = k, k assemblies (the genome each, bench.py's batched mode)
+    in one rescore (seg_job, one extension launch) against k single
+    rescores: each job's score within 1e-12 rel, zero reads equal, both
+    timed."""
     import torch
 
     from gaml_tpu_torch.native import query_windows_batch
@@ -601,6 +620,9 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None):
     rel = abs(score - ref[0]) / abs(ref[0])
     check(np.isfinite(score) and rel <= 2e-6,
           f"score {score} vs cpu {ref[0]} (rel {rel:.3g})")
+    if jobs:
+        res_jobs = rescore_jobs(device, dev, genome, cap, args, jobs,
+                                (score, zeros), reps)
     h_score, h_zeros = host_total_prob(bundle, genome, n_reads)
     res = {"genome": genome_len, "reads": n_reads, "candidates": n_tot,
            "score": score, "zero_reads": zeros, "rel_vs_cpu": rel,
@@ -613,7 +635,39 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None):
     print("  " + json.dumps(res), flush=True)
     print("  extension on these candidates: " + json.dumps(on_cands),
           flush=True)
+    if jobs:
+        print(f"  {jobs} jobs in one rescore: " + json.dumps(res_jobs),
+              flush=True)
+        res["jobs"] = res_jobs
     return res
+
+
+def rescore_jobs(device, dev, genome, cap, args, k, single, reps):
+    """k copies of the genome as k jobs of one rescore (seg_job, n_jobs:
+    one candgen, one extension launch) against the single rescore's
+    (score, zeros) ``single``; timed beside k single rescores."""
+    seqs = [genome] * k
+    kw = dict(args, total_len=[args["total_len"]] * k)
+
+    def batched():
+        return dev.rescore(seqs, cap * k, seg_job=np.arange(k), n_jobs=k,
+                           **kw)
+
+    counts = reset_launches()
+    sb, zb, nb = batched()
+    launches = counts["extend_exact"]
+    check(nb == cap * k, f"{k} jobs: n_total {nb} vs {k} x {cap}")
+    rel = float(np.max(np.abs(sb - single[0]) / abs(single[0])))
+    check(rel <= 1e-12 and (zb == single[1]).all(),
+          f"{k} jobs ({sb}, {zb}) vs one rescore {single}")
+    check(device.type != "cuda" or launches == 1,
+          f"{k} jobs made {launches} extension launches")
+    return {"jobs": k, "candidates": nb, "max_rel_vs_single": rel,
+            "launches": launches,
+            "ms": timer(device, batched, reps, host_clock=True),
+            "singles_ms": timer(device, lambda: [
+                dev.rescore([genome], cap, **args) for _ in range(k)],
+                reps, host_clock=True)}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -787,7 +841,7 @@ def anneal_against_cpu_and_bfs(device, d, iterations, check_iterations,
     return res, diff, dev_tr
 
 
-def phase_anneal(device, d, world, iterations=500, check_iterations=100,
+def phase_anneal(device, d, world, iterations=300, check_iterations=40,
                  timeout=450):
     """The anneal on the aureus world written to ``d`` (``world``: its
     genome length, node count and seconds to write)."""
@@ -1718,7 +1772,7 @@ def mixed_batch_split(device, d, n_windows=64, reps=5):
     return res
 
 
-def phase_mixed_anneal(device, d, iterations=100, check_iterations=25,
+def phase_mixed_anneal(device, d, iterations=30, check_iterations=10,
                        timeout=450):
     """The phase-4 world with its frag library quality-trimmed: 20 % of
     each mate file's reads cut to 60-99 bp (own generator, seed 29).  The
@@ -1771,17 +1825,20 @@ def traces_agree(got, want):
 
 def scoring_probes(spent, moves, keep):
     """Wrap, for one in-process run, the host scoring steps (timed into
-    ``spent``: the scoring call, the paired staging, the host pair loop)
+    ``spent``: the scoring call, the paired staging, the host pair loop,
+    the PacBio seeding, chaining and job staging)
     and the paired device scorer's bucket products (each call's scorer
     and buckets recorded into ``moves``, one list per scoring call, the
     last ``keep`` calls kept).  Returns a function that undoes it."""
     from gaml_tpu_torch.parallel import paired_sharded
     from gaml_tpu_torch.scoring import calculator, paired
+    from gaml_tpu_torch.scoring.pacbio import PacbioReadSet
 
     scorer = paired_sharded.ShardedPairedScorer
     sites = {"calc_prob": (calculator.ProbCalculator, "calc_prob"),
              "staging": (paired_sharded, "stage_paired_rows"),
              "host_pairs": (paired, "calc_score_for_path_inc"),
+             "pb_staging": (PacbioReadSet, "_slow_prepare"),
              "products": (scorer, "read_totals"),
              "products_inc": (scorer, "apply_buckets")}
     saved = {k: getattr(mod, name) for k, (mod, name) in sites.items()}
@@ -1824,17 +1881,21 @@ def paired_flag(device, d, flag, iterations, want, timeout,
     calls (timed after it with CUDA events, call by call).  The second
     trace equals the first over its length, and the first equals
     ``want``'s (the host scorer's) or lies within traces_agree's 1e-9,
-    with equal .walks."""
+    with equal .walks.  With ``iterations`` None only the second run is
+    made, held to ``want`` itself (phase 12's run of its config at world
+    2 is then the run it must equal)."""
     name = flag[2:].replace("-", "_")
 
     def walks(tag):
         with open(os.path.join(d, f"{tag}.walks"), "rb") as f:
             return f.read()
 
-    text_a, wall_a = run_cli("gaml_tpu_torch.cli",
-                             write_config(d, name + "_a", iterations),
-                             ["--device", str(device), flag], timeout)
-    sum_a = summary_of(text_a)
+    if iterations is not None:
+        tag_a = name + "_a"
+        text_a, wall_a = run_cli("gaml_tpu_torch.cli",
+                                 write_config(d, tag_a, iterations),
+                                 ["--device", str(device), flag], timeout)
+        sum_a = summary_of(text_a)
     spent, moves = {}, []
     undo = scoring_probes(spent, moves, keep)
     try:
@@ -1843,6 +1904,9 @@ def paired_flag(device, d, flag, iterations, want, timeout,
             [flag], env={"GAML_DEV_MIN_BASES": "0"}, window=window)
     finally:
         undo()
+    if iterations is None:
+        tag_a, text_a, wall_a, sum_a = name + "_b", text_b, _wall, sum_b
+        iterations = second_iterations
     tr_a, tr_b = trace(text_a), trace(text_b)
     check(len(tr_a) >= iterations, f"{flag}: {len(tr_a)} itnum lines")
     check(tr_a[:len(tr_b)] == tr_b,
@@ -1850,7 +1914,7 @@ def paired_flag(device, d, flag, iterations, want, timeout,
     how = traces_agree(tr_a, want["trace"])
     check(how is not None, f"{flag}: trace against the host scorer's: "
           f"{first_difference(tr_a, want['trace'])}")
-    check(walks(name + "_a") == want["walks"],
+    check(walks(tag_a) == want["walks"],
           f"{flag}: .walks differ from the host scorer's")
     check(device.type != "cuda" or sum_a["launches"]["extend_exact"] > 0,
           f"{flag}: no extension launch: {sum_a}")
@@ -1873,7 +1937,8 @@ def paired_flag(device, d, flag, iterations, want, timeout,
            "host_warm_ms_per_move": float(np.mean(
                want["move_s"][1:warm])) * 1e3,
            "vs_host_trace": how, "second_run": f"identical over "
-           f"{len(tr_b)} itnum lines",
+           f"{len(tr_b)} itnum lines" if text_a is not text_b
+           else "phase 12's, at world 2",
            "profiled_ms_per_move": anneal_b / second_iterations * 1e3,
            "scoring_share": spent["calc_prob"] / anneal_b,
            "host_staging_share": (spent.get("staging", 0.0)
@@ -1887,9 +1952,13 @@ def paired_flag(device, d, flag, iterations, want, timeout,
            "buckets_per_call": float(np.median([
                sum(len(bs) for _sc, bs in m) for m in moves if m]))
            if per_move else 0,
-           "launches": {k: sum_a["launches"][k] + sum_b["launches"][k]
-                        for k in ("extend_exact", "extend_exact_staged")}}
+           "launches": {k: sum_b["launches"][k] + (
+               sum_a["launches"][k] if text_a is not text_b else 0)
+               for k in ("extend_exact", "extend_exact_staged")}}
     print(f"  {flag} " + json.dumps(res), flush=True)
+    # the second run's trace and .walks, for phase 12's world of two
+    res["ref"] = {"trace": tr_b, "walks": walks(name + "_b"),
+                  "window": window}
     return res
 
 
@@ -1913,20 +1982,21 @@ def single_end_world(device, world=(2_800_000, 300_000)):
 
 
 def phase_device_scorers(device, d, d_pb, pb_genome, anneal=None, pb=None,
-                         models=None, iterations=500, second_iterations=210,
-                         window=(100, 100), full_iterations=50,
+                         models=None, iterations=300, second_iterations=210,
+                         window=(100, 100), full_iterations=None,
                          full_second_iterations=13, full_window=(1, 10),
                          pb_iterations=400, timeout=450):
     """The JAX CLI's four device scorers through the port's CLI on
     ``device``.  On the aureus world in ``d``: --paired-device-inc and
     --device-state over phase 4's iterations, their second runs over
     ``second_iterations`` profiled over ``window``; --paired-device
-    (every walk restaged on every scoring call) over ``full_iterations``,
-    its second run over ``full_second_iterations`` profiled over
-    ``full_window``; each flag in two runs (paired_flag) held to the
+    (every walk restaged on every scoring call) over ``full_iterations``
+    (None: no such run), its second run over ``full_second_iterations``
+    profiled over ``full_window``; each flag in two runs (paired_flag;
+    --paired-device's second run is phase 12's at world 2) held to the
     port's default run (the host incremental scorer: phase 4's, and one
-    of ``full_iterations`` here, in this process, whose moves' walls give
-    the host's ms per warm move).  On the
+    of --paired-device's length here, in this process, whose moves'
+    walls give the host's ms per warm move).  On the
     PacBio world in ``d_pb``: --pacbio-device, every forward cell on K5
     ("mesh"), held to phase 7's native route by assembly_bound.  Then
     sharded_single_end_score on phase 9's candidates against
@@ -1951,11 +2021,12 @@ def phase_device_scorers(device, d, d_pb, pb_genome, anneal=None, pb=None,
         with open(os.path.join(d, "dev.walks"), "rb") as f:
             ref = {"trace": anneal["trace"], "iterations": iterations,
                    "walks": f.read(), "anneal_s": anneal["dev_anneal_s"]}
+    short = full_iterations or full_second_iterations
     text, summary, _wall, _busy, _span, move_s = cli_in_process(
-        device, d, write_config(d, "dev_short", full_iterations), [],
+        device, d, write_config(d, "dev_short", short), [],
         env={"GAML_DEV_MIN_BASES": "0"})
     with open(os.path.join(d, "dev_short.walks"), "rb") as f:
-        ref_short = {"trace": trace(text), "iterations": full_iterations,
+        ref_short = {"trace": trace(text), "iterations": short,
                      "walks": f.read(), "anneal_s": summary["anneal_s"],
                      "move_s": move_s}
     check(ref_short["trace"] == ref["trace"][:len(ref_short["trace"])],
@@ -2007,6 +2078,7 @@ def phase_device_scorers(device, d, d_pb, pb_genome, anneal=None, pb=None,
         else busy / 1e3 / summary["anneal_s"]}
     print("  --pacbio-device " + json.dumps(res["--pacbio-device"]),
           flush=True)
+    res["--pacbio-device"]["ref"] = {"trace": tr, "nat": pb}
 
     w = models["world"] if models is not None else single_end_world(device)
     n_reads = w["n_reads"]
@@ -2043,8 +2115,320 @@ def phase_device_scorers(device, d, d_pb, pb_genome, anneal=None, pb=None,
     return res
 
 
+# ----------------------------------------------------------------- phase 12
+def foreign_modules():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "gaml_tpu"))
+
+
+def run_ranks(specs, timeout):
+    """This script in rank mode (``--rank``, rank_main), one process per
+    spec, all started together as one process group (gloo: the ranks
+    share the card); returns their reports in rank order.  Every rank is
+    killed when one fails or outlives ``timeout``."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    world = len(specs)
+    with tempfile.TemporaryDirectory(prefix="gaml_ranks_") as tmp:
+        outs, procs = [], []
+        for r, spec in enumerate(specs):
+            outs.append(os.path.join(tmp, f"rank{r}.json"))
+            path = os.path.join(tmp, f"spec{r}.json")
+            with open(path, "w") as f:
+                json.dump(dict(spec, out=outs[r]), f)
+            # each rank gets its share of the host's cores for its
+            # OpenMP and torch threads, as torchrun's ranks do
+            env = dict(os.environ, GAML_COORD=f"127.0.0.1:{port}",
+                       GAML_NPROC=str(world), GAML_PROC_ID=str(r),
+                       GAML_DIST_BACKEND="gloo", GAML_DEV_MIN_BASES="0",
+                       OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1)
+                                               // world)))
+            env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH",
+                                                            "")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", path],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=timeout)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for r, (proc, log) in enumerate(zip(procs, logs)):
+            check(proc.returncode == 0, f"rank {r} of {world} exited "
+                  f"{proc.returncode}:\n{log[-4000:]}")
+        reports = []
+        for out in outs:
+            with open(out) as f:
+                reports.append(json.load(f))
+    for r, rep in enumerate(reports):
+        check(not rep["foreign_modules"], f"rank {r} holds modules of jax or "
+              f"the JAX package: {rep['foreign_modules']}")
+    return reports
+
+
+def rank_main(spec_path):
+    """One rank of phase 12 (run_ranks), on the spec's device.  ``cli``: the port's
+    CLI in this process as cli_in_process runs it (its process group from
+    the GAML_* environment; the scoring steps timed by scoring_probes);
+    ``single_end``: sharded_single_end_score on this rank's shard of
+    phase 9's candidates.  Writes its report to the spec's ``out``."""
+    import torch
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = torch.device(spec["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if spec["task"] == "cli":
+        spent, moves = {}, []
+        undo = scoring_probes(spent, moves, 1)
+        try:
+            text, summary, wall, busy, span, move_s = cli_in_process(
+                device, spec["d"], spec["cfg"], spec["extra"],
+                window=spec["window"])
+        finally:
+            undo()
+        out = {"trace": trace(text), "summary": summary, "wall_s": wall,
+               "busy_ms": busy, "span_s": span, "move_s": move_s,
+               "spent": spent}
+    else:
+        out = single_end_rank(device, spec)
+    out["foreign_modules"] = foreign_modules()
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def single_end_rank(device, spec):
+    """sharded_single_end_score of this rank's reads shard (the npz at
+    ``spec["shard"]``: local read ids, positions and read rows) at world
+    (2, 1); its staging seconds, score, launches and warm ms."""
+    from gaml_tpu_torch.parallel import distributed, sharded
+
+    rank, world = distributed.initialize(
+        os.environ["GAML_COORD"], int(os.environ["GAML_NPROC"]),
+        int(os.environ["GAML_PROC_ID"]), backend="gloo", device=device)
+    try:
+        z = np.load(spec["shard"])
+        n_local = int(z["n_local"])
+        cands = list(zip(z["rid"].tolist(), z["gpos"].tolist(),
+                         z["rpos"].tolist(), list(z["reads"])))
+        counts = reset_launches()
+        t0 = time.perf_counter()
+        staged, lens_mask, n_pad = sharded.stage_sharded(
+            z["genome"], [cands], spec["rmax"],
+            [np.full(n_local, READ_LEN)], world=(world, 1), device=device)
+        sync(device)
+        stage_s = time.perf_counter() - t0
+        args = (staged, lens_mask, float(np.log(MATCH)),
+                float(np.log(MISMATCH)), len(z["genome"]), MPB, MPS,
+                spec["rmax"], n_pad, spec["n_reads"])
+        score, zeros = (x.item() for x in
+                        sharded.sharded_single_end_score(*args))
+        launches = dict(counts)
+        ms = timer(device, lambda: float(
+            sharded.sharded_single_end_score(*args)[0]), 5, host_clock=True)
+    finally:
+        distributed.shutdown()
+    return {"rank": rank, "candidates": len(cands), "reads": n_local,
+            "score": score, "zero_reads": int(zeros), "staging_s": stage_s,
+            "ms": ms, "launches": launches}
+
+
+def flag_world_two(device, d, flag, cfg, its, window, ref, timeout):
+    """One device-scorer flag at world 2 (two ranks over gloo on one
+    card, through the CLI): each rank's trace equal to the other's and to
+    ``ref``'s, the world-1 run of the same config (phase 11's), itnum line
+    for line.  Returns the per-rank readings."""
+    reps = run_ranks([{"task": "cli", "device": str(device), "d": d,
+                       "cfg": cfg, "extra": [flag], "window": window}] * 2,
+                     timeout)
+    for r, rep in enumerate(reps):
+        check(len(rep["trace"]) >= its, f"{flag} rank {r}: "
+              f"{len(rep['trace'])} itnum lines")
+        check(rep["trace"] == ref, f"{flag} rank {r} against world 1: "
+              f"{first_difference(rep['trace'], ref)}")
+        check((rep["summary"]["rank"], rep["summary"]["world"]) == (r, 2),
+              f"{flag} rank {r}: {rep['summary']}")
+    out = {"iterations": its, "ranks": []}
+    for rep in reps:
+        anneal = rep["summary"]["anneal_s"]
+        sp = rep["spent"]
+        out["ranks"].append({
+            "ms_per_move": anneal / its * 1e3,
+            "scoring_share": sp["calc_prob"] / anneal,
+            "host_staging_share": (sp.get("staging", 0.0)
+                                   + sp.get("host_pairs", 0.0)
+                                   + sp.get("pb_staging", 0.0)) / anneal,
+            "device_busy_ms": rep["busy_ms"],
+            "device_busy_share": None if rep["busy_ms"] is None
+            else rep["busy_ms"] / 1e3 / rep["span_s"],
+            "profiled_moves": window or [0, its],
+            "launches": rep["summary"]["launches"],
+            "pacbio_cells": rep["summary"]["pacbio_cells"]})
+    busy = [r["device_busy_ms"] for r in out["ranks"]]
+    out["card_busy_share"] = None if None in busy else \
+        sum(busy) / 1e3 / max(rep["span_s"] for rep in reps)
+    return out, reps
+
+
+def phase_distributed(device, d, d_pb, pb_genome, scorers, models,
+                      timeout=300):
+    """Multi-process scoring on the card (parallel/distributed.py).  The
+    dry run (tools/dryrun_distributed.py) at world 2 over gloo, both
+    ranks on this card, against one rank over NCCL: every merged result
+    bit-equal but the single-end score (index_add_'s float64 atomics,
+    rel 1e-12).  Then the four device-scorer flags through the CLI at
+    world 2 over gloo, each rank's trace equal to phase 11's world-1
+    run of the same config (--paired-device-inc, --device-state: its
+    second runs, profiled over the same moves; --paired-device: its
+    second run; --pacbio-device: its whole run, held to phase 7's
+    assembly bound too), rank 0's .walks equal; and
+    sharded_single_end_score at world (2, 1) on phase 9's candidates
+    against SingleEndModel's score."""
+    from gaml_tpu_torch.core import dna
+    from gaml_tpu_torch.parallel.distributed import reads_for_process
+    from gaml_tpu_torch.tools import dryrun_distributed as dryrun
+
+    launches = {"extend_exact": 0, "extend_exact_staged": 0,
+                "banded_forward": 0}
+
+    def count(counts):
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+
+    res = {}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        runs = [pool.submit(dryrun.launch, w, backend=b, device=str(device),
+                            timeout=timeout)
+                for w, b in ((2, "gloo"), (1, "nccl"))]
+        two, one = (r.result() for r in runs)
+    # partials: sums of each rank's reads, added in rank order (another
+    # association at another world)
+    merged = [{k: v for k, v in rep.items() if k not in dryrun.LOCAL_KEYS
+               + ("world", "backend", "partials")}
+              for rep in (one[0], two[0])]
+    se = [m.pop("single_end") for m in merged]
+    check(merged[0] == merged[1] and se[0][1] == se[1][1]
+          and close(se[0][0], se[1][0], 1e-12),
+          f"the dry run at world 2 (gloo) against world 1 (nccl): "
+          f"{merged[1]} {se[1]} vs {merged[0]} {se[0]}")
+    for rep in two + one:
+        check(device.type != "cuda" or (
+              rep["launches"]["extend_exact_staged"] > 0 and
+              rep["launches"]["banded_forward"] > 0),
+              f"dry run rank {rep['rank']} of {rep['world']}: launches "
+              f"{rep['launches']}")
+        count(rep["launches"])
+    res["dryrun"] = {
+        "s": time.perf_counter() - t0, "backends": ["gloo x 2", "nccl x 1"],
+        "single_end_rel": abs(se[1][0] - se[0][0]) / abs(se[0][0]),
+        "fwd_max_err": max(r["fwd_max_err"] for r in two + one),
+        "launches": {f"{r['backend']} rank {r['rank']}": r["launches"]
+                     for r in two + one}}
+    print("  dryrun " + json.dumps(res["dryrun"]), flush=True)
+
+    for flag in ("--paired-device-inc", "--device-state", "--paired-device"):
+        p11 = scorers[flag]
+        name = flag[2:].replace("-", "_") + "_w2"
+        its = p11["second_iterations"]
+        t0 = time.perf_counter()
+        out, _reps = flag_world_two(
+            device, d, flag, write_config(d, name, its), its,
+            p11["ref"]["window"], p11["ref"]["trace"], timeout)
+        with open(os.path.join(d, f"{name}.walks"), "rb") as f:
+            check(f.read() == p11["ref"]["walks"],
+                  f"{flag}: world 2's .walks differ from world 1's")
+        out.update(wall_s=time.perf_counter() - t0,
+                   world1_ms_per_move=p11["profiled_ms_per_move"],
+                   world1_host_staging_share=p11["host_staging_share"],
+                   world1_device_busy_share=p11["device_busy_share"])
+        for r in out["ranks"]:
+            count(r["launches"])
+        res[flag] = out
+        print(f"  {flag} world 2 " + json.dumps(out), flush=True)
+
+    p11 = scorers["--pacbio-device"]
+    its = p11["iterations"]
+    t0 = time.perf_counter()
+    out, reps = flag_world_two(device, d_pb, "--pacbio-device",
+                               write_pacbio_config(d_pb, "mesh_w2", its),
+                               its, None, p11["ref"]["trace"], timeout)
+    for r in out["ranks"]:
+        check(set(r["pacbio_cells"]) == {"mesh"} and (
+              device.type != "cuda" or r["launches"]["banded_forward"] > 0),
+              f"--pacbio-device world 2: cells {r['pacbio_cells']}, "
+              f"launches {r['launches']}")
+        count(r["launches"])
+    nat = p11["ref"]["nat"]
+    q = assembly_bound(d_pb, dna.decode_seq(pb_genome), "mesh_w2",
+                       float(reps[0]["trace"][-1].split()[9]),
+                       {"best_prob": nat["nat_best_prob"],
+                        "quality": nat["nat_quality"]})
+    out.update(wall_s=time.perf_counter() - t0, quality=q,
+               world1_ms_per_move=p11["ms_per_move"],
+               world1_device_busy_share=p11["device_busy_share"])
+    res["--pacbio-device"] = out
+    print("  --pacbio-device world 2 " + json.dumps(out), flush=True)
+
+    w = models["world"] if models is not None else single_end_world(device)
+    n_reads = w["n_reads"]
+    rid = np.array([c.read_id for c, _ in w["cands"]], np.int64)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="gaml_shards_") as tmp:
+        specs = []
+        for r in range(2):
+            got = reads_for_process(n_reads, r, 2)
+            lo, hi = got[0], got[-1] + 1
+            sel = np.flatnonzero((rid >= lo) & (rid < hi))
+            path = os.path.join(tmp, f"shard{r}.npz")
+            np.savez(path, genome=w["genome"], rid=rid[sel] - lo,
+                     gpos=np.array([w["cands"][i][0].genome_pos
+                                    for i in sel], np.int64),
+                     rpos=np.array([w["cands"][i][0].read_pos
+                                    for i in sel], np.int64),
+                     reads=np.stack([np.asarray(w["cands"][i][1], np.uint8)
+                                     for i in sel]),
+                     n_local=hi - lo)
+            specs.append({"task": "single_end", "device": str(device),
+                          "shard": path,
+                          "rmax": int(w["rmax"]), "n_reads": n_reads})
+        ranks = run_ranks(specs, timeout)
+    for rep in ranks:
+        check(rep["zero_reads"] == w["zero_reads"] and
+              close(rep["score"], w["score"], 1e-12) and
+              rep["score"] == ranks[0]["score"],
+              f"sharded_single_end_score rank {rep['rank']} "
+              f"({rep['score']}, {rep['zero_reads']}) vs the model "
+              f"({w['score']}, {w['zero_reads']})")
+        check(device.type != "cuda" or (
+              rep["launches"]["extend_exact_staged"] == 1 and
+              rep["launches"]["extend_exact"] == 0),
+              f"sharded_single_end_score rank {rep['rank']} launches "
+              f"{rep['launches']}")
+        count(rep["launches"])
+    res["single_end"] = {
+        "s": time.perf_counter() - t0, "world": [2, 1],
+        "rel_vs_model": abs(ranks[0]["score"] - w["score"]) / abs(
+            w["score"]),
+        "world1_ms": scorers["single_end"]["ms"],
+        "ranks": [{k: rep[k] for k in ("candidates", "reads", "staging_s",
+                                       "ms", "launches")} for rep in ranks]}
+    print("  single_end world (2, 1) " + json.dumps(res["single_end"]),
+          flush=True)
+    res["launches"] = launches
+    return res
+
+
 def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed,
-                 scorers):
+                 scorers, dist):
     """{"kernels": [...]}: one entry per TPU kernel with the numbers of
     the phases that measured it.  K1-K4 are all served by one kernel,
     the exact two-direction extension.  Launches come from the runs of
@@ -2053,8 +2437,9 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed,
     and K3's, the JAX package's route under GAML_SWAR_BACKWARD=0) plus
     phase 11's paired-flag anneals, K4a/K4b the models of phase 9 plus
     phase 10's anneal and phase 11's sharded_single_end_score, K5 phase 7
-    plus phase 11's --pacbio-device anneal, K6 its tool (each entry keeps
-    phase 11's share as ``launches_phase11``).  The K1/K2 entries carry
+    plus phase 11's --pacbio-device anneal, K6 its tool, and phase 12's
+    launches summed over its ranks (each entry keeps phase 11's and
+    phase 12's shares as ``launches_phase11`` and ``launches_phase12``).  The K1/K2 entries carry
     the resident loader's phase-1 numbers on the rescore's world and,
     beside them, the staged route it replaced on the same candidates.
     K3's entry is the resident loader on phase 8's ragged draw, K4b's the
@@ -2072,14 +2457,16 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed,
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     more = ("share", "rows", "lane_ops", "bytes", "bound_ms_stacked_count")
     res = kern["extend_exact"]
-    p11 = scorers["launches"]
-    uniform = anneal["launches"]["extend_exact"] + p11["extend_exact"]
+    p11, p12 = scorers["launches"], dist["launches"]
+    uniform = anneal["launches"]["extend_exact"] + p11["extend_exact"] \
+        + p12["extend_exact"]
     k1k2 = dict({k: res[k] for k in keys + more},
                 staged_route_ms=res["staged_route_ms"],
                 stage_views_ms=res["stage_views_ms"], launches=uniform,
-                launches_phase11=p11["extend_exact"], loader="resident")
+                launches_phase11=p11["extend_exact"],
+                launches_phase12=p12["extend_exact"], loader="resident")
     k4 = mixed["launches"]["extend_exact"] + models["K4a"]["launches"] \
-        + p11["extend_exact_staged"]
+        + p11["extend_exact_staged"] + p12["extend_exact_staged"]
 
     def exact_entry(res, launches, **extra):
         return dict({k: res[k] for k in keys + more}, launches=launches,
@@ -2094,18 +2481,21 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed,
             "K3": exact_entry(
                 exact["exact_resident"], uniform,
                 launches_phase11=p11["extend_exact"],
+                launches_phase12=p12["extend_exact"],
                 loader="resident", read_lens=exact["exact_resident"][
                     "read_lens"], dp_rows_exact_ms=exact["dp_rows_exact"][
                     "ms"]),
             "K4a": exact_entry(
                 k4a, k4, launches_phase11=p11["extend_exact_staged"],
+                launches_phase12=p12["extend_exact_staged"],
                 loader="staged", stacked_ms=k4a["stacked"]["ms"],
                 stacked_bound_ms=k4a["stacked"]["bound_ms"],
                 resident_ms=k4a["resident"]["ms"],
                 resident_bound_ms=k4a["resident"]["bound_ms"]),
             "K4b": exact_entry(
                 exact["exact_staged"], k4,
-                launches_phase11=p11["extend_exact_staged"], loader="staged",
+                launches_phase11=p11["extend_exact_staged"],
+                launches_phase12=p12["extend_exact_staged"], loader="staged",
                 stacked_ms=exact["dp_rows_exact_stacked"]["ms"]),
             "K6": exact["K6"]}
     kern["K5"] = {
@@ -2127,8 +2517,10 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed,
                       mufu_bound_ms_w128=fwd[128]["mufu_bound_ms"],
                       compiled=card["banded_forward_w64"],
                       compiled_w128=card["banded_forward_w128"],
-                      launches=pb["launches"] + p11["banded_forward"],
-                      launches_phase11=p11["banded_forward"])
+                      launches=pb["launches"] + p11["banded_forward"]
+                      + p12["banded_forward"],
+                      launches_phase11=p11["banded_forward"],
+                      launches_phase12=p12["banded_forward"])
     return {"kernels": [
         dict({k: kern[tpu][k] for k in keys}, name=name, tpu_kernel=tpu,
              route="cuda", source=source, replaces=replaces,
@@ -2157,13 +2549,15 @@ def main():
         print("no CUDA device: the smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_main(sys.argv[2])
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     card = run_phase("0 card", phase_card)
     kern = run_phase("1 kernels", phase_kernels, device)
     rescore_launches = {}
     run_phase("2 rescore 400 kb", phase_rescore, device, 400_000, 100_000,
-              launches=rescore_launches)
+              launches=rescore_launches, jobs=4)
     run_phase("3 rescore 2.8 Mb", phase_rescore, device, 2_800_000, 300_000)
     with tempfile.TemporaryDirectory(prefix="gaml_smoke_") as d_aureus, \
             tempfile.TemporaryDirectory(prefix="gaml_smoke_pb_") as d_pb:
@@ -2184,12 +2578,13 @@ def main():
         scorers = run_phase("11 device scorers", phase_device_scorers,
                             device, d_aureus, d_pb, genome, anneal, pb,
                             models)
-    foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "gaml_tpu"))
+        dist = run_phase("12 distributed", phase_distributed, device,
+                         d_aureus, d_pb, genome, scorers, models)
+    foreign = foreign_modules()
     check(not foreign, f"modules of jax or the JAX package were imported: "
           f"{foreign}")
     print(json.dumps(kernels_line(card, kern, anneal, fwd, pb, exact, models,
-                                  mixed, scorers)), flush=True)
+                                  mixed, scorers, dist)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

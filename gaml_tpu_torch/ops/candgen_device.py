@@ -107,10 +107,12 @@ class DeviceCandGen:
         return (codes.to(torch.uint8), torch.as_tensor(seg_base, device=dev),
                 torch.as_tensor(seg_len, device=dev))
 
-    def query(self, seqs: List[np.ndarray], cap: Optional[int] = None
-              ) -> Candidates:
-        """Candidates of a window batch (``cap`` None: unbounded)."""
-        codes_u8, seg_base, seg_len = self.upload(seqs)
+    def query(self, seqs: List[np.ndarray] = None, cap: Optional[int] = None,
+              staged=None) -> Candidates:
+        """Candidates of a window batch (``cap`` None: unbounded);
+        ``staged``: an ``upload`` result to use instead of ``seqs``."""
+        codes_u8, seg_base, seg_len = staged if staged is not None else \
+            self.upload(seqs)
         dev = self.device
         g = codes_u8.shape[0]
         L = self.read_len
@@ -123,7 +125,7 @@ class DeviceCandGen:
         codes = codes_u8.to(torch.int64)
         j = torch.arange(g, device=dev)
         pid = torch.repeat_interleave(
-            torch.arange(len(seqs), device=dev), seg_len, output_size=g)
+            torch.arange(len(seg_len), device=dev), seg_len, output_size=g)
         segb = seg_base[pid]
         segl = seg_len[pid]
         comp = torch.where(codes < 4, 3 - codes, codes)

@@ -15,10 +15,17 @@ with the group in place of the read id) puts each group's earliest
 candidate first.  Probabilities, their per-read sums and the reduction
 are float64, where the JAX package computes in float32 (ROADMAP C12;
 ops.score says why).
+
+``rescore(seg_job=, n_jobs=)`` scores k independent assemblies in one
+call (one candgen, one extend_exact launch for every job's windows):
+each window segment belongs to a job, the dedup groups are (window,
+read) as for one assembly, and the per-read sums are binned by (job,
+read) in int64, where the JAX package packs (segment << 20 | read) into
+int32 and overflows past 2^11 segments (ROADMAP C2).
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -50,28 +57,42 @@ class DeviceRescorer:
         return self.ext.extend(c.codes, c.seg_base[c.seg], c.seg_len[c.seg],
                                c.g0, c.r0, self.gen.row_of[c.rid], c.orient)
 
-    def rescore(self, seqs: List[np.ndarray], cap: int,
-                log_match: float = 0.0, log_mismatch: float = 0.0,
-                total_len: int = 1, min_prob_per_base: float = 0.0,
-                min_prob_start: float = 0.0):
-        """Returns (score, zero_reads, n_total).  The result is valid only
-        when n_total <= cap; otherwise score and zero_reads are None and
-        the caller retries with cap >= n_total."""
-        c = self.gen.query(seqs, cap)
+    def stage(self, seqs: List[np.ndarray]):
+        """Upload a window batch (DeviceCandGen.upload) for a later
+        ``rescore(staged=...)``."""
+        return self.gen.upload(seqs)
+
+    def rescore(self, seqs: List[np.ndarray] = None,
+                cap: Optional[int] = None, log_match: float = 0.0,
+                log_mismatch: float = 0.0, total_len=1,
+                min_prob_per_base: float = 0.0, min_prob_start: float = 0.0,
+                staged=None, seg_job=None, n_jobs: int = 1):
+        """Returns (score, zero_reads, n_total) of the windows ``seqs``
+        (or of ``staged``, a ``stage`` result).  The result is valid only
+        when n_total <= cap (None: unbounded); otherwise score and
+        zero_reads are None and the caller retries with cap >= n_total.
+
+        ``seg_job`` + ``n_jobs``: k independent assemblies in this one
+        call: seg_job maps each window segment to its job (segments past
+        its end are job 0), ``total_len`` is then a [n_jobs] sequence and
+        score / zero_reads come back as [n_jobs] numpy arrays."""
+        c = self.gen.query(seqs, cap, staged=staged)
         if c.overflow:
             return None, None, c.n_total
         ext = self._extend(c) if c.n_total else None
         return self.score(c, ext, log_match, log_mismatch, total_len,
-                          min_prob_per_base, min_prob_start)
+                          min_prob_per_base, min_prob_start, seg_job, n_jobs)
 
     def score(self, c: Candidates, ext, log_match: float,
-              log_mismatch: float, total_len: int, min_prob_per_base: float,
-              min_prob_start: float):
+              log_mismatch: float, total_len, min_prob_per_base: float,
+              min_prob_start: float, seg_job=None, n_jobs: int = 1):
         """The stages after the extension: first-wins dedup of ``ext`` =
         (ok, errs, begin) over the candidates ``c`` (None when there are
-        none), the per-read probability sum and GetTotalProb.  Returns
-        (score, zero_reads, n_total)."""
-        read_probs = torch.zeros(self.n_reads, dtype=torch.float64,
+        none), the per-read probability sums of each job (float64, binned
+        by (job, read)) and GetTotalProb of each.  Returns (score,
+        zero_reads, n_total), per job as in ``rescore``."""
+        n = self.n_reads
+        read_probs = torch.zeros(n_jobs * n, dtype=torch.float64,
                                  device=self.device)
         if ext is not None:
             ok, errs, begin = ext
@@ -82,12 +103,27 @@ class DeviceRescorer:
             order, keep = dedup_alignments(grp, begin, ok)
             idx = order[keep]
             rid = c.rid[idx]
-            read_probs.index_add_(0, rid, alignment_probs(
+            bins = rid
+            if seg_job is not None:
+                job = np.zeros(len(c.seg_len), np.int64)
+                job[:len(seg_job)] = np.asarray(seg_job)[:len(job)]
+                bins = torch.as_tensor(job, device=self.device)[
+                    c.seg[idx]] * n + rid
+            read_probs.index_add_(0, bins, alignment_probs(
                 errs[idx], self.lens[rid], log_match, log_mismatch))
-        score, zeros, _ = reduce_read_probs(read_probs, self.lens, total_len,
-                                            min_prob_per_base,
-                                            min_prob_start)
-        return float(score), int(zeros), c.n_total
+        if seg_job is None:
+            score, zeros, _ = reduce_read_probs(
+                read_probs, self.lens, total_len, min_prob_per_base,
+                min_prob_start)
+            return float(score), int(zeros), c.n_total
+        tl = np.asarray(total_len, dtype=np.int64).reshape(-1)
+        per_job = [reduce_read_probs(read_probs[j * n:(j + 1) * n],
+                                     self.lens, int(tl[j]),
+                                     min_prob_per_base, min_prob_start)[:2]
+                   for j in range(n_jobs)]
+        out = torch.stack([torch.stack([s, z.to(torch.float64)])
+                           for s, z in per_job]).cpu().numpy()
+        return out[:, 0].copy(), out[:, 1].astype(np.int64), c.n_total
 
     def extend(self, seqs: List[np.ndarray], cap: int):
         """Candgen + extension for a window batch, kernels queued; returns

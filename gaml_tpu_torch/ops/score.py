@@ -58,16 +58,12 @@ def dedup_sort_payload(read_id, begin, good, payloads):
     return rid_key[order], keep, tuple(p[order] for p in payloads)
 
 
-def candidates_to_score(ok, errs, begin, valid, read_id, read_len,
-                        read_lens_all, log_match, log_mismatch, total_len,
-                        min_prob_per_base, min_prob_start, n_reads: int):
-    """Per-candidate alignment results to the assembly score.
-
-    ok/errs/begin: extension outputs [N]; valid: padding mask [N];
-    read_id/read_len: per-candidate read metadata [N]; read_lens_all:
-    [n_reads] true per-read lengths (the floor of reads with no
-    alignment).  Returns 0-dim (score, zero_reads) and read_probs
-    (float64)."""
+def candidates_read_probs(ok, errs, begin, valid, read_id, read_len,
+                          log_match, log_mismatch, n_reads: int):
+    """Per-candidate alignment results to per-read probability sums
+    (float64 [n_reads]): ok/errs/begin the extension outputs [N], valid
+    the padding mask [N], read_id/read_len the candidates' read metadata
+    [N]; duplicate (read, begin) alignments count once."""
     good = ok & valid
     rid_s, keep, (errs_s, rlen_s) = dedup_sort_payload(
         read_id, begin, good, (errs, read_len))
@@ -75,6 +71,19 @@ def candidates_to_score(ok, errs, begin, valid, read_id, read_len,
     read_probs = torch.zeros(n_reads, dtype=torch.float64,
                              device=ok.device)
     read_probs.index_add_(0, rid_s[keep].to(torch.int64), p[keep])
+    return read_probs
+
+
+def candidates_to_score(ok, errs, begin, valid, read_id, read_len,
+                        read_lens_all, log_match, log_mismatch, total_len,
+                        min_prob_per_base, min_prob_start, n_reads: int):
+    """Per-candidate alignment results to the assembly score
+    (candidates_read_probs, then the reduction; read_lens_all: [n_reads]
+    true per-read lengths, the floor of reads with no alignment).
+    Returns 0-dim (score, zero_reads) and read_probs (float64)."""
+    read_probs = candidates_read_probs(ok, errs, begin, valid, read_id,
+                                       read_len, log_match, log_mismatch,
+                                       n_reads)
     return reduce_read_probs(read_probs, read_lens_all, total_len,
                              min_prob_per_base, min_prob_start)
 
@@ -119,18 +128,15 @@ def reduce_read_probs(read_probs: torch.Tensor, lens: torch.Tensor,
     return score, zero_reads, read_probs
 
 
-def single_end_forward(read_f, rlen_f, gwin_f, glen_f,
-                       read_b, rlen_b, gwin_b, glen_b,
-                       g0, r0, valid, read_id, read_len, at_start,
-                       read_lens_all, log_match, log_mismatch, total_len,
-                       min_prob_per_base, min_prob_start,
-                       rmax: int, n_reads: int):
-    """Single-chip forward step: extension + dedup + reduction, on the
-    staged dict's tensors (ops.extend.stage_candidates; candidate-major
-    views, rmax rows).  On CUDA tensors the extension is one launch of
-    extend_exact_staged (both directions and the epilogue, the views read
-    where they lie); on CPU tensors its plain version.  Returns (score,
-    zero_reads, read_probs)."""
+def single_end_read_probs(read_f, rlen_f, gwin_f, glen_f,
+                          read_b, rlen_b, gwin_b, glen_b,
+                          g0, r0, valid, read_id, read_len, at_start,
+                          log_match, log_mismatch, rmax: int, n_reads: int):
+    """Extension + dedup + per-read sums of the staged dict's tensors
+    (ops.extend.stage_candidates; candidate-major views, rmax rows).  On
+    CUDA tensors the extension is one launch of extend_exact_staged (both
+    directions and the epilogue, the views read where they lie); on CPU
+    tensors its plain version.  Returns read_probs (float64 [n_reads])."""
     if read_f.shape[1] != rmax:
         raise ValueError(f"read_f has {read_f.shape[1]} rows, rmax {rmax}")
     ok, errs, begin = extend_exact_staged({
@@ -138,7 +144,21 @@ def single_end_forward(read_f, rlen_f, gwin_f, glen_f,
         "glen_f": glen_f, "read_b": read_b, "gwin_b": gwin_b,
         "rlen_b": rlen_b, "glen_b": glen_b, "g0": g0, "r0": r0,
         "at_start": at_start})
-    return candidates_to_score(
-        ok, errs, begin, valid, read_id, read_len, read_lens_all,
-        log_match, log_mismatch, total_len, min_prob_per_base,
-        min_prob_start, n_reads)
+    return candidates_read_probs(ok, errs, begin, valid, read_id, read_len,
+                                 log_match, log_mismatch, n_reads)
+
+
+def single_end_forward(read_f, rlen_f, gwin_f, glen_f,
+                       read_b, rlen_b, gwin_b, glen_b,
+                       g0, r0, valid, read_id, read_len, at_start,
+                       read_lens_all, log_match, log_mismatch, total_len,
+                       min_prob_per_base, min_prob_start,
+                       rmax: int, n_reads: int):
+    """Single-chip forward step: single_end_read_probs, then the
+    reduction.  Returns (score, zero_reads, read_probs)."""
+    read_probs = single_end_read_probs(
+        read_f, rlen_f, gwin_f, glen_f, read_b, rlen_b, gwin_b, glen_b, g0,
+        r0, valid, read_id, read_len, at_start, log_match, log_mismatch,
+        rmax, n_reads)
+    return reduce_read_probs(read_probs, read_lens_all, total_len,
+                             min_prob_per_base, min_prob_start)

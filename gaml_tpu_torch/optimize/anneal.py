@@ -129,7 +129,8 @@ class Optimizer:
             if s.checkpoint_every and self.itnum % s.checkpoint_every == 0 \
                     and s.checkpoint_prefix:
                 from .checkpoint import save_checkpoint
-                save_checkpoint(self, paths, s.checkpoint_prefix)
+                save_checkpoint(self, paths, s.checkpoint_prefix,
+                                write=write_outputs)
         if write_outputs:
             output_paths_to_file(self.best_paths, gr, KMER, s.threshold,
                                  s.output_prefix)

@@ -13,7 +13,8 @@ from typing import List
 from ..core.paths import Path
 
 
-def save_checkpoint(optimizer, paths: List[Path], prefix: str) -> str:
+def save_checkpoint(optimizer, paths: List[Path], prefix: str,
+                    write: bool = True) -> str:
     state = {
         "itnum": optimizer.itnum,
         "cur_prob": optimizer.cur_prob,
@@ -30,8 +31,11 @@ def save_checkpoint(optimizer, paths: List[Path], prefix: str) -> str:
         ],
     }
     path = f"{prefix}.ckpt"
-    with open(path, "wb") as f:
-        pickle.dump(state, f)
+    # under a process group every process gathers the device totals above
+    # and only the one that writes outputs writes the file
+    if write:
+        with open(path, "wb") as f:
+            pickle.dump(state, f)
     return path
 
 

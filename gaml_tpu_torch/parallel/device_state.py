@@ -20,10 +20,15 @@ in the order they came (``segment_ranks``) and added one rank at a time
 the order of the host's ``np.add.at``, so the device totals equal the
 host's bit for bit.
 
+Under a process group (parallel/distributed.py) a process holds only
+the totals of its own reads [lo, hi): ``apply`` keeps the chunk's
+entries of those reads, in the chunk's order, and ``reduce`` gathers
+every process's totals in rank order and reduces the full vector, so
+each total and the score are those of a world of one.
+
 Left behind from the JAX state, which needed them for a sharded mesh and
 for XLA's compile count: the mesh and its padding of the reads axis, the
-reads mask, the power-of-two chunk buckets and the float32 option.  A10b
-brings the process group.
+reads mask, the power-of-two chunk buckets and the float32 option.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops.score import reduce_read_probs
+from . import distributed
 
 
 def segment_ranks(ids):
@@ -83,42 +89,56 @@ def floored_mean_log(probs, lens, total_len: int, min_prob_per_base: float,
 
 
 class DeviceScoringState:
-    """Per-read running totals (float64 ``probs``) and the pair lengths
-    of the floor (``lens``) on ``device``, with the floored-log
-    reduction."""
+    """This process's per-read running totals (float64 ``probs``, reads
+    [lo, hi) of the process group's partition; all of them in a world of
+    one) and every read's pair length of the floor (``lens``) on
+    ``device``, with the floored-log reduction."""
 
     def __init__(self, n_reads: int, read_lens, device="cuda"):
         self.device = torch.device(device)
         self.n_reads = n_reads
-        self.probs = torch.zeros(n_reads, dtype=torch.float64,
+        self.lo, self.hi = distributed.read_range(n_reads)
+        self.probs = torch.zeros(self.hi - self.lo, dtype=torch.float64,
                                  device=self.device)
         self.lens = torch.tensor(np.asarray(read_lens, dtype=np.float64),
                                  device=self.device)
 
     def apply(self, rid_arr, p_arr, sign: int = 1) -> None:
         """Add one delta chunk, ``sign * p_arr``, into the totals of reads
-        ``rid_arr`` (ids may repeat), in the chunk's order."""
-        if len(rid_arr) == 0:
+        ``rid_arr`` (ids may repeat), in the chunk's order; entries of
+        other processes' reads are dropped."""
+        rid = np.asarray(rid_arr, dtype=np.int64)
+        mine = (rid >= self.lo) & (rid < self.hi)
+        rid = rid[mine] - self.lo
+        deltas = np.asarray(p_arr, dtype=np.float64)[mine]
+        if len(rid) == 0:
             return
-        deltas = np.asarray(p_arr, dtype=np.float64)
         # ids and deltas in one transfer
         both = torch.from_numpy(np.stack([
-            np.asarray(rid_arr, dtype=np.int64),
-            (deltas if sign > 0 else -deltas).view(np.int64)])).to(self.device)
+            rid, (deltas if sign > 0 else -deltas).view(np.int64)])).to(
+            self.device)
         uniq, seg, rank = segment_ranks(both[0])
         self.probs[uniq] = fold_segments(
             self.probs[uniq], both[1].view(torch.float64), seg, rank)
 
+    def all_probs(self) -> torch.Tensor:
+        """Every read's total [n_reads], gathered from every process."""
+        return distributed.gather_read_values(self.probs, self.n_reads)
+
     def reduce(self, total_len: int, min_prob_per_base: float,
                min_prob_start: float):
         """(score, zero_reads): reference GetTotalProb semantics."""
-        return floored_mean_log(self.probs, self.lens, total_len,
+        return floored_mean_log(self.all_probs(), self.lens, total_len,
                                 min_prob_per_base, min_prob_start)
 
     def to_host(self) -> np.ndarray:
-        """The running totals as a float64 numpy array (checkpointing)."""
-        return self.probs.cpu().numpy().astype(np.float64)
+        """Every read's running total as a float64 numpy array
+        (checkpointing; a collective under a process group)."""
+        return self.all_probs().cpu().numpy().astype(np.float64)
 
     def from_host(self, probs) -> None:
-        self.probs = torch.tensor(np.asarray(probs, dtype=np.float64),
-                                  device=self.device)
+        """Set the totals from every read's (this process keeps its
+        own)."""
+        self.probs = torch.tensor(
+            np.asarray(probs, dtype=np.float64)[self.lo:self.hi],
+            device=self.device)

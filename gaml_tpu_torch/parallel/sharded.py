@@ -1,16 +1,23 @@
-"""Data-parallel single-end scoring, on one device.
+"""Data-parallel single-end scoring, one reads shard per process.
 
 Port of gaml_tpu/parallel/sharded.py.  The JAX package maps reads and
 alignment candidates onto a 2-D mesh: axis "reads" shards the reads and
 their per-read totals, axis "cand" splits the candidates of the same
-reads.  The staged arrays keep that layout here, with leading axes [NR,
-NC, nb, ...], so ROADMAP A10b can shard them over processes; on one
-device the world is (NR, NC) = (1, 1), and ``sharded_single_end_score``
-runs the port's single-chip forward (ops/score.py::single_end_forward:
-one launch of extend_exact_staged, the float64 dedup and reduction,
-floored in log space) on the one cell.  The JAX step compares the floor
-in float32 linear space (ROADMAP C10); this one does not.  There is no
-make_mesh: one device is the world.
+reads.  The port's world is (NR, NC): NR processes
+(parallel/distributed.py), each holding one reads shard (its row, a
+contiguous range of reads_for_process), and NC cells per row.  A process
+stages only its own row, [1, NC, nb, ...] (``nb`` its own: a CUDA kernel
+takes any shape, so the processes agree on none), and
+``sharded_single_end_score`` runs the port's single-chip forward
+(ops/score.py::single_end_read_probs: one launch of extend_exact_staged
+per cell, the float64 dedup and per-read sums) on its cells.  split_cells
+keeps a read's candidates in one cell, so the cells' sum is exact; the
+per-read totals are gathered in rank order and every process runs the
+one-process reduction (ops/score.py::reduce_read_probs, floored in log
+space) on the full vector: the score of a world of one, on every rank.
+The JAX step compares the floor in float32 linear space (ROADMAP C10);
+this one does not.  There is no make_mesh: the process group is the
+world.
 """
 from __future__ import annotations
 
@@ -20,7 +27,8 @@ import numpy as np
 import torch
 
 from ..ops.extend import stage_candidates
-from ..ops.score import single_end_forward
+from ..ops.score import reduce_read_probs, single_end_read_probs
+from . import distributed
 
 STAGED_KEYS = ("read_f", "rlen_f", "gwin_f", "glen_f", "read_b", "rlen_b",
                "gwin_b", "glen_b", "g0", "r0", "valid", "read_id",
@@ -31,22 +39,26 @@ def sharded_single_end_score(staged, read_lens_all, log_match: float,
                              log_mismatch: float, total_len: int,
                              min_prob_per_base: float, min_prob_start: float,
                              rmax: int, n_reads_local: int, n_reads: int):
-    """The forward scoring step of stage_sharded's arrays (leading dims
-    [NR, NC, nb, ...]; read_lens_all the (lens, mask) pair, [NR,
-    n_reads_local]).  One device runs a world of (1, 1).  Returns 0-dim
-    tensors (score, zero_reads)."""
-    world = tuple(staged["read_f"].shape[:2])
-    if world != (1, 1):
-        raise ValueError(f"staged for a world of {world}: one device runs "
-                         "(1, 1); more is ROADMAP A10b")
+    """The forward scoring step of this process's stage_sharded arrays
+    (leading dims [1, NC, nb, ...], read ids local to its reads shard;
+    read_lens_all the (lens, mask) pair, [1, n_reads_local]).  Returns
+    0-dim tensors (score, zero_reads), the same on every process."""
+    lo, hi = distributed.read_range(n_reads)
+    if staged["read_f"].shape[0] != 1 or n_reads_local < hi - lo:
+        raise ValueError(f"staged rows {tuple(staged['read_f'].shape[:2])} "
+                         f"with {n_reads_local} local reads: a process "
+                         f"holds one reads shard, reads [{lo}, {hi})")
     lens, _mask = read_lens_all
-    if n_reads_local != n_reads:
-        raise ValueError(f"{n_reads_local} local reads of {n_reads}: one "
-                         "reads shard holds them all")
-    score, zeros, _ = single_end_forward(
-        *(staged[k][0, 0] for k in STAGED_KEYS), lens[0, :n_reads],
-        log_match, log_mismatch, total_len, min_prob_per_base,
-        min_prob_start, rmax=rmax, n_reads=n_reads)
+    probs = None
+    for c in range(staged["read_f"].shape[1]):
+        cell = single_end_read_probs(
+            *(staged[k][0, c] for k in STAGED_KEYS), log_match,
+            log_mismatch, rmax=rmax, n_reads=hi - lo)
+        probs = cell if probs is None else probs + cell
+    probs = distributed.gather_read_values(probs, n_reads)
+    all_lens = distributed.gather_read_values(lens[0, :hi - lo], n_reads)
+    score, zeros, _ = reduce_read_probs(probs, all_lens, total_len,
+                                        min_prob_per_base, min_prob_start)
     return score, zeros
 
 
@@ -96,14 +108,18 @@ def stage_rows(seq: np.ndarray, per_cell: List[List[list]], nc: int,
 def stage_sharded(seq: np.ndarray, cand_by_read_shard: List[list],
                   rmax: int, read_lens: Sequence[np.ndarray],
                   world: Tuple[int, int] = (1, 1), device="cuda"):
-    """[NR, NC, nb, ...] staged tensors from per-reads-shard candidate
-    lists, for a world of (NR, NC) = ``world``; each candidate is
-    (read_id_local, genome_pos, read_pos, read).  Returns (staged, (lens,
+    """This process's [1, NC, nb, ...] staged tensors, for a world of
+    (NR, NC) = ``world`` whose NR is the process group's size:
+    ``cand_by_read_shard`` holds one list, the candidates of this
+    process's reads shard, each (read_id_local, genome_pos, read_pos,
+    read), and ``read_lens`` its reads' lengths.  Returns (staged, (lens,
     mask), n_reads_local)."""
     nr, nc = world
-    if len(cand_by_read_shard) != nr:
+    if nr != distributed.world()[1] or len(cand_by_read_shard) != 1:
         raise ValueError(f"{len(cand_by_read_shard)} reads shards for a "
-                         f"world of {world}")
+                         f"world of {world} in a process group of "
+                         f"{distributed.world()[1]}: a process stages its "
+                         "own shard")
     per_cell, nb = split_cells(cand_by_read_shard, nc)
     n_reads_local = max(len(rl) for rl in read_lens)
     staged, lens_mask = stage_rows(seq, per_cell, nc, rmax, nb, read_lens,

@@ -397,6 +397,9 @@ class PacbioReadSet:
                 read_filter.update(self.anchors_cache.get(e, ()))
         if not read_filter:
             read_filter = set(range(self.reads_num))
+        # a process of a group runs only its own reads' jobs
+        # (parallel/pacbio_sharded.py)
+        lo, hi = getattr(self, "read_range", (0, self.reads_num))
 
         # window bookkeeping for cache assignment (graph.cc:2724-2742)
         subpath_starts: Dict[Tuple[int, ...], int] = {}
@@ -421,7 +424,7 @@ class PacbioReadSet:
 
         seq_index = SortedKmerIndex(seq) if len(seq) >= SEED_K else None
         rids = [rid for rid in sorted(read_filter)
-                if len(self.read_seq[rid]) >= SEED_K]
+                if lo <= rid < hi and len(self.read_seq[rid]) >= SEED_K]
         if seq_index is not None and rids:
             # one batched index query for all (read, strand) pairs, with
             # per-read packed k-mers and revcomps cached across rescores;

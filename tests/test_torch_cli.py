@@ -194,8 +194,12 @@ def test_cli_refuses_missing_cuda_and_unported_options(tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert port_main([config, "--device", "cuda"]) != 0
     assert port_main([config, "--device", "cuda", "--paired-device"]) != 0
+    # --distributed is ported: without its process count and id it exits
+    # 1, as gaml_tpu.cli does
+    monkeypatch.delenv("GAML_NPROC", raising=False)
+    monkeypatch.delenv("GAML_PROC_ID", raising=False)
     assert port_main([config, "--device", "cpu",
-                      "--distributed", "localhost:1234"]) == 2
+                      "--distributed", "localhost:1234"]) == 1
 
 
 def write_pacbio_world(tmp_path, iterations=8):

@@ -4,7 +4,8 @@ CPU route and input checks, the K6 tool
 (gaml_tpu_torch.tools.swar_kernel_proto), chip_smoke.py's ragged draw,
 and on a CUDA card K1, K2, dp_rows_exact, the exact extension (uniform
 and ragged reads, both loaders), the K6 tool and K5
-(gaml_tpu_torch.ops.forward_cuda) against their plain versions.  Imports
+(gaml_tpu_torch.ops.forward_cuda) against their plain versions, and the
+read-sharded scorers over gloo and NCCL process groups.  Imports
 no jax, so the card tests run on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -495,3 +496,28 @@ def test_pacbio_dispatch_on_card():
     got, want = out["cuda"], out["cpu"]
     assert np.isfinite(got).all()
     assert (np.abs(got - want) <= 1e-4 * np.abs(want) + 1e-3).all()
+
+
+@pytest.mark.cuda
+def test_distributed_dryrun_on_card():
+    """The read-sharded scorers (gaml_tpu_torch.tools.dryrun_distributed)
+    with two ranks over gloo on one card against one rank over NCCL:
+    every merged result equal but the single-end score (index_add_'s
+    float64 atomics: rel 1e-12), each rank launching K4a (the staged
+    exact extension) and K5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from gaml_tpu_torch.tools import dryrun_distributed as dryrun
+
+    two = dryrun.launch(2, backend="gloo", device="cuda:0")
+    one = dryrun.launch(1, backend="nccl", device="cuda")
+    skip = dryrun.LOCAL_KEYS + ("world", "backend", "partials",
+                                "single_end")
+    merged = [{k: v for k, v in r[0].items() if k not in skip}
+              for r in (one, two)]
+    assert merged[0] == merged[1]
+    (s1, z1), (s2, z2) = one[0]["single_end"], two[0]["single_end"]
+    assert z1 == z2 and s2 == pytest.approx(s1, rel=1e-12)
+    for rep in two + one:
+        assert rep["launches"]["extend_exact_staged"] > 0
+        assert rep["launches"]["banded_forward"] > 0
