@@ -24,10 +24,17 @@ the JAX package is imported.
    port's own CPU engine (which runs the plain versions), with warm
    timings, the stage split (candgen, extension, dedup + reduction) and
    the extension against its plain version on the rescore's own
-   candidates; and k = 4 assemblies (the genome each, bench.py's batched
-   mode) in one rescore (seg_job, one extension launch) against four
-   single rescores, each job within 1e-12, both timed;
-3. the same at S. aureus scale (2.8 Mb, 300k reads of 100 bp);
+   candidates; the candgen kernel (csrc/candgen.cu) bit-equal to the
+   native query and to its plain version (query_plain), both timed and
+   split into stages with CUDA events, the kernel launched once by the
+   rescore and query_plain never; and k = 4 assemblies (the genome each,
+   bench.py's batched mode) in one rescore (seg_job, one candgen, one
+   extension launch) against four single rescores, each job within
+   1e-12, both timed, its candidates the kernel's = query_plain's;
+3. the same at S. aureus scale (2.8 Mb, 300k reads of 100 bp), and 200
+   anneal-sized window batches cut from that genome (1-512 segments of
+   60-3000 bp, N codes in every third) through the kernel, query_plain
+   and the native query, all bit-equal;
 4. an anneal (300 iterations) through ``python -m gaml_tpu_torch.cli
    --device cuda`` on the 2.8 Mb paired world of
    examples/aureus_like_run.py, held against a ``--device cpu`` run of
@@ -90,6 +97,11 @@ the JAX package is imported.
    world (2, 1) on phase 9's candidates.  Per flag and rank: ms a move
    beside world 1's, the host staging share, the busy share, launches.
 
+The anneals of phases 4 and 10-12 must launch the candgen kernel and
+never query_plain on the card.  ``python3 chip_smoke.py --candgen-split
+[plain] [kernel]`` runs only the candgen stage split of each route on
+phase 2's and phase 3's worlds and phase 4's first 100 moves' batches.
+
 Kernel times are the median over warm calls of CUDA events around one
 call (the launch included).  Each kernel's bound is the larger of its
 16-bit lane operations (for K5: its FP32 instructions, or the longest
@@ -129,6 +141,12 @@ KERNELS = (  # (TPU kernel, entry name, source, the pallas_call it replaces)
      "gaml_tpu/ops/forward_pallas.py:134"),
     ("K6", "swar_cost:K6", BAND_DP, "tools/swar_kernel_proto.py:127"),
 )
+# candidate generation: no pallas_call; it replaces the JAX package's XLA
+# graph (gaml_tpu/ops/candgen_device.py:91-278)
+CANDGEN = ("candgen", "gaml_tpu_torch/csrc/candgen.cu",
+           "gaml_tpu/ops/candgen_device.py:91")
+CANDGEN_KERNELS = ("candgen_runs_kernel", "candgen_scan_kernel",
+                   "candgen_expand_kernel", "candgen_finish_kernel")
 PB_MATCH, PB_MISMATCH = 0.85, 0.0375  # config mismatch_prob=0.0375
 # peaks of one NVIDIA H100 SXM for the bounds: HBM bytes/s; the SM clock;
 # 16-bit lane operations/s of the packed integer band (132 SMs x 64 int32
@@ -139,6 +157,7 @@ HBM_BPS = 3.35e12
 SM_HZ = 1.98e9
 LANE_OPS = 132 * 64 * 2 * SM_HZ
 FP32_OPS = 132 * 128 * SM_HZ
+INT32_OPS = 132 * 64 * SM_HZ  # int32 lane operations/s (candgen's bound)
 MUFU_OPS = 132 * 16 * SM_HZ
 # 16-bit lane operations per band cell (one candidate-row-diagonal): the
 # cost (match test, the diagonal select, substitution and read-skip each
@@ -271,6 +290,14 @@ def phase_card():
         check(usage[entry].get("spill_stores", 0) == 0,
               f"{entry} spills: {usage[entry]}")
         print(f"  {entry}: " + json.dumps(usage[entry]), flush=True)
+    for frag in CANDGEN_KERNELS:
+        names = [k for k in sass if frag in k]
+        check(len(names) == 1, f"{frag}: kernels {names} in the SASS")
+        reg = ptxas_usage(build.build_info["log"], frag)
+        usage[frag] = dict(reg[0] if reg else {}, sass=sass[names[0]]["sass"])
+        check(usage[frag].get("spill_stores", 0) == 0,
+              f"{frag} spills: {usage[frag]}")
+        print(f"  {frag}: " + json.dumps(usage[frag]), flush=True)
     return usage
 
 
@@ -552,7 +579,7 @@ def host_total_prob(bundle, genome, n_reads):
 
 
 def phase_rescore(device, genome_len, n_reads, reps=10, launches=None,
-                  jobs=0):
+                  jobs=0, fuzz=0):
     """Candgen and rescore on ``device`` against the native query and the
     port's CPU engine; score tolerance 2e-6 relative (float32 sums taken
     in another order).  Then the stage split and the exact extension
@@ -560,7 +587,11 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None,
     ``jobs`` = k, k assemblies (the genome each, bench.py's batched mode)
     in one rescore (seg_job, one extension launch) against k single
     rescores: each job's score within 1e-12 rel, zero reads equal, both
-    timed."""
+    timed.  Candgen: the kernel (DeviceCandGen.query) bit-equal to the
+    native query and to query_plain, both timed and split into stages,
+    the kernel once on the rescore's main path and query_plain never;
+    with ``fuzz`` = n, n anneal-sized batches cut from the genome
+    (candgen_fuzz)."""
     import torch
 
     from gaml_tpu_torch.native import query_windows_batch
@@ -573,19 +604,24 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None,
     bundle = make_bundle(reads)
     t_world = time.perf_counter() - t0
     want = query_windows_batch(bundle, [genome])[0]
-    got = DeviceCandGen(bundle, device).query_host([genome])[0]
+    gen = DeviceCandGen(bundle, device)
+    got = gen.query_host([genome])[0]
     for name, a, b in zip(("rid", "g0", "r0", "orient"), got, want):
         check(np.array_equal(a, b), f"candgen {name} differs from native")
+    cand = candgen_against_plain(device, gen, [genome], reps)
     cap = len(want[0])
     args = dict(log_match=float(np.log(MATCH)),
                 log_mismatch=float(np.log(MISMATCH)), total_len=genome_len,
                 min_prob_per_base=MPB, min_prob_start=MPS)
     ref = DeviceRescorer(bundle, device="cpu").rescore([genome], cap, **args)
     dev = DeviceRescorer(bundle, device=device)
-    if launches is not None:
-        for k in extend_cuda.LAUNCHES:
-            extend_cuda.LAUNCHES[k] = 0
+    reset_launches()
     score, zeros, n_tot = dev.rescore([genome], cap, **args)
+    main = all_launches()
+    check(device.type != "cuda" or (main["candgen_runs"] == 1 and
+                                    main["query_plain"] == 0),
+          f"the rescore's candgen did not run the kernel once: {main}")
+    cand["launches"] = main["candgen_runs"]
     if launches is not None:
         launches.update(extend_cuda.LAUNCHES)
         check(device.type != "cuda" or (
@@ -623,6 +659,9 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None,
     if jobs:
         res_jobs = rescore_jobs(device, dev, genome, cap, args, jobs,
                                 (score, zeros), reps)
+        cand["launches"] += res_jobs["candgen_launches"]
+    if fuzz:
+        cand["fuzz"] = candgen_fuzz(gen, bundle, genome, fuzz)
     h_score, h_zeros = host_total_prob(bundle, genome, n_reads)
     res = {"genome": genome_len, "reads": n_reads, "candidates": n_tot,
            "score": score, "zero_reads": zeros, "rel_vs_cpu": rel,
@@ -635,6 +674,8 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None,
     print("  " + json.dumps(res), flush=True)
     print("  extension on these candidates: " + json.dumps(on_cands),
           flush=True)
+    print("  candgen, kernel and plain: " + json.dumps(cand), flush=True)
+    res["candgen"] = cand
     if jobs:
         print(f"  {jobs} jobs in one rescore: " + json.dumps(res_jobs),
               flush=True)
@@ -653,9 +694,16 @@ def rescore_jobs(device, dev, genome, cap, args, k, single, reps):
         return dev.rescore(seqs, cap * k, seg_job=np.arange(k), n_jobs=k,
                            **kw)
 
+    staged = dev.stage(seqs)
+    same_candidates(dev.gen.query(staged=staged),
+                    dev.gen.query_plain(staged=staged), f"{k} jobs")
     counts = reset_launches()
     sb, zb, nb = batched()
     launches = counts["extend_exact"]
+    main = all_launches()
+    check(device.type != "cuda" or (main["candgen_runs"] == 1 and
+                                    main["query_plain"] == 0),
+          f"{k} jobs: the candgen kernel did not run once: {main}")
     check(nb == cap * k, f"{k} jobs: n_total {nb} vs {k} x {cap}")
     rel = float(np.max(np.abs(sb - single[0]) / abs(single[0])))
     check(rel <= 1e-12 and (zb == single[1]).all(),
@@ -663,11 +711,228 @@ def rescore_jobs(device, dev, genome, cap, args, k, single, reps):
     check(device.type != "cuda" or launches == 1,
           f"{k} jobs made {launches} extension launches")
     return {"jobs": k, "candidates": nb, "max_rel_vs_single": rel,
-            "launches": launches,
+            "launches": launches, "candgen_launches": main["candgen_runs"],
             "ms": timer(device, batched, reps, host_clock=True),
             "singles_ms": timer(device, lambda: [
                 dev.rescore([genome], cap, **args) for _ in range(k)],
                 reps, host_clock=True)}
+
+
+# --------------------------------------------- candgen: the two routes
+def all_launches():
+    """A copy of every launch count (band kernels, candgen kernels) and
+    of query_plain's call count."""
+    from gaml_tpu_torch.ops import candgen_cuda, candgen_device, extend_cuda
+
+    return {**extend_cuda.LAUNCHES, **candgen_cuda.LAUNCHES,
+            **candgen_device.PLAIN_CALLS}
+
+
+def same_candidates(got, want, what):
+    """Two candgen results bit-equal: n_total and every tensor in order."""
+    import torch
+
+    check(got.n_total == want.n_total,
+          f"{what}: n_total {got.n_total} vs {want.n_total}")
+    for name in ("rid", "g0", "r0", "orient", "seg"):
+        a, b = getattr(got, name), getattr(want, name)
+        check(a is not None and b is not None and a.dtype == b.dtype and
+              torch.equal(a, b), f"{what}: {name} differs")
+
+
+def native_layout(c, n_seg):
+    """Candidates as the native query's per-window (rid, g0, r0, orient)
+    int32 arrays (they come sorted by segment)."""
+    cols = [t.cpu().numpy() for t in (c.rid, c.g0, c.r0, c.orient)]
+    cuts = np.searchsorted(c.seg.cpu().numpy(), np.arange(n_seg + 1))
+    return [tuple(x[cuts[i]:cuts[i + 1]].astype(np.int32) for x in cols)
+            for i in range(n_seg)]
+
+
+def candgen_bound(gen, g, c):
+    """The candgen kernels' bound on a batch of g codes with candidates
+    ``c``: the larger of bytes over HBM_BPS and int32 operations over
+    INT32_OPS, counted as the function needs them, not as the kernels'
+    tiles do.  Bytes: each code read once; per run with hits its
+    fingerprint and its two CSR offsets (two 32-byte sectors), the whole
+    ``sf`` and ``off`` at most; per candidate its read id, row and seed
+    position read (each array at most once) and five int64 written.
+    Operations, per window start of each strand: a rolling hash (shift,
+    or, mask, xor), the key (2), a van Herk/Gil-Werman window max (three
+    64-bit maxes, 6) and the validity and run flags (8); 12 a candidate.
+    Runs are counted from the candidates (their distinct orientation,
+    segment and g0), so runs without hits are left out."""
+    import torch
+
+    n = c.n_total
+    runs = int(torch.unique((c.orient << 62) | (c.seg << 32) | c.g0)
+               .numel()) if n else 0
+    gathers = sum(min(n * 8, t.nbytes)
+                  for t in (gen.rids, gen.row_of, gen.seed2))
+    nbytes = g + min(runs * 64, gen.sf.nbytes + gen.off.nbytes) + gathers \
+        + n * 5 * 8
+    ops = 2 * g * (4 + 2 + 6 + 8) + n * 12
+    t_ops, t_bytes = ops / INT32_OPS * 1e3, nbytes / HBM_BPS * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "int32_ops": ops, "bytes": nbytes, "runs": runs}
+
+
+def candgen_against_plain(device, gen, seqs, reps):
+    """The candgen kernel (DeviceCandGen.query) against query_plain on one
+    uploaded batch: bit-equal (max_abs_err 0), both timed from the
+    uploaded codes (CUDA events around a call that ends in its host
+    synchronisation), the bound, and each route's stage split."""
+    staged = gen.upload(seqs)
+    got = gen.query(staged=staged)
+    same_candidates(got, gen.query_plain(staged=staged), "candgen")
+    res = {"candidates": got.n_total, "max_abs_err": 0,
+           "ms": timer(device, lambda: gen.query(staged=staged), reps),
+           "plain_ms": timer(device, lambda: gen.query_plain(staged=staged),
+                             reps)}
+    res.update(candgen_bound(gen, staged[0].shape[0], got))
+    res["share"] = res["bound_ms"] / res["ms"]
+    res["split"] = {route: candgen_split(device, [(gen, seqs, None)],
+                                         route, reps)
+                    for route in ("kernel", "plain")}
+    return res
+
+
+def candgen_fuzz(gen, bundle, genome, n, seed=17):
+    """``n`` anneal-sized window batches cut from ``genome``: 1-512
+    segments of 60-3000 bp each, N codes in every third batch; on each
+    the kernel bit-equal to query_plain and to the native query."""
+    from gaml_tpu_torch.native import query_windows_batch
+
+    rng = np.random.default_rng(seed)
+    t0, cands = time.perf_counter(), 0
+    for b in range(n):
+        k = int(rng.integers(1, 513))
+        lens = rng.integers(60, 3001, k)
+        starts = rng.integers(0, len(genome) - lens + 1)
+        segs = [genome[a:a + ln].copy() for a, ln in zip(starts, lens)]
+        if b % 3 == 0:
+            for x in segs:
+                x[rng.random(len(x)) < 0.002] = 4
+        staged = gen.upload(segs)
+        got = gen.query(staged=staged)
+        same_candidates(got, gen.query_plain(staged=staged),
+                        f"fuzz batch {b}")
+        for i, (x, y) in enumerate(zip(native_layout(got, k),
+                                       query_windows_batch(bundle, segs))):
+            for name, u, v in zip(("rid", "g0", "r0", "orient"), x, y):
+                check(np.array_equal(u, v), f"fuzz batch {b} window {i}: "
+                      f"{name} differs from native")
+        cands += got.n_total
+    return {"batches": n, "candidates": cands,
+            "s": time.perf_counter() - t0}
+
+
+def device_ops(device, fn):
+    """Kernels and copies the card ran for fn() (torch.profiler), or None
+    where the profiler saw no device activity."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        sync(device)
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def candgen_split(device, batches, route, reps):
+    """The stage split of one candgen route over window batches
+    ``batches`` [(DeviceCandGen, seqs, cap)]: {stage: ms per query}, each
+    stage's CUDA-event span (ops.candgen_device.stage_ms) summed over the
+    batches and divided by their count, the median over ``reps`` passes
+    after a warm one; "total_ms" their sum, "device_ops" the kernels and
+    copies of the first batch's query (profiler).  ``route``: "kernel"
+    (DeviceCandGen.query) or "plain" (query_plain)."""
+    from gaml_tpu_torch.ops.candgen_device import stage_ms
+
+    def one_pass():
+        split = []
+        for gen, seqs, cap in batches:
+            (gen.query if route == "kernel" else gen.query_plain)(
+                seqs, cap, split=split)
+        return stage_ms(split)
+
+    one_pass()
+    passes = [one_pass() for _ in range(reps)]
+    res = {k: float(np.median([p[k] for p in passes])) / len(batches)
+           for k in passes[0]}
+    res["total_ms"] = sum(res.values())
+    gen, seqs, cap = batches[0]
+    res["device_ops"] = device_ops(device, lambda: (
+        gen.query if route == "kernel" else gen.query_plain)(seqs, cap))
+    return res
+
+
+def anneal_batches(device, d, iterations=100):
+    """The window batches of phase 4's anneal (its world in ``d``) over
+    its first ``iterations`` moves, recorded where they reach
+    DeviceCandGen.query (answered by query_plain while recording):
+    [(DeviceCandGen, seqs, cap)]."""
+    from gaml_tpu_torch.ops.candgen_device import DeviceCandGen
+
+    real, rec = DeviceCandGen.query, []
+
+    def query(self, seqs=None, cap=None, staged=None, split=None):
+        rec.append((self, seqs, cap))
+        return self.query_plain(seqs, cap, staged, split)
+
+    DeviceCandGen.query = query
+    try:
+        cli_in_process(device, d, write_config(d, "split", iterations), [],
+                       env={"GAML_DEV_MIN_BASES": "0"})
+    finally:
+        DeviceCandGen.query = real
+    return rec
+
+
+def candgen_split_main(routes):
+    """``--candgen-split [routes]``: each route's stage split on the bench
+    world, the aureus world and phase 4's anneal batches; one JSON line."""
+    import torch
+
+    from gaml_tpu_torch.ops.candgen_device import DeviceCandGen
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    out = {"card": smi}
+    for tag, world in (("bench", (400_000, 100_000)),
+                       ("aureus", (2_800_000, 300_000))):
+        genome, reads = make_world(*world)
+        gen = DeviceCandGen(make_bundle(reads), device)
+        out[tag + ".candidates"] = gen.query_plain([genome]).n_total
+        for route in routes:
+            out[f"{tag}.{route}"] = candgen_split(
+                device, [(gen, [genome], None)], route, 10)
+        print(json.dumps({k: v for k, v in out.items()
+                          if k.startswith(tag)}), flush=True)
+    with tempfile.TemporaryDirectory(prefix="gaml_split_") as d:
+        write_anneal_world(d)
+        batches = anneal_batches(device, d)
+        out["anneal.batches"] = len(batches)
+        out["anneal.segments_per_batch"] = float(np.mean(
+            [len(s) for _g, s, _c in batches]))
+        out["anneal.bases_per_batch"] = float(np.mean(
+            [sum(map(len, s)) for _g, s, _c in batches]))
+        out["anneal.candidates_per_batch"] = float(np.mean(
+            [g.query_plain(s, c).n_total for g, s, c in batches]))
+        for route in routes:
+            out["anneal." + route] = candgen_split(device, batches, route, 3)
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 # ------------------------------------------------------------------ phase 4
@@ -816,6 +1081,8 @@ def anneal_against_cpu_and_bfs(device, d, iterations, check_iterations,
     check(device.type != "cuda" or all(
         summary["launches"][k] > 0 for k in launched),
         f"a kernel was not launched by the anneal: {summary}")
+    check(device.type != "cuda" or summary["launches"]["query_plain"] == 0,
+          f"the anneal ran query_plain on the card: {summary}")
     best = float(dev_tr[-1].split()[9])
     check(np.isfinite(best), f"best prob {best}")
     files = {}
@@ -846,7 +1113,8 @@ def phase_anneal(device, d, world, iterations=300, check_iterations=40,
     """The anneal on the aureus world written to ``d`` (``world``: its
     genome length, node count and seconds to write)."""
     res, diff, dev_tr = anneal_against_cpu_and_bfs(
-        device, d, iterations, check_iterations, timeout, ("extend_exact",))
+        device, d, iterations, check_iterations, timeout,
+        ("extend_exact", "candgen_runs"))
     res = dict(zip(("genome", "nodes", "world_s"), world), **res)
     print("  " + json.dumps(res), flush=True)
     if diff is not None:
@@ -1327,10 +1595,14 @@ def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
 
 # ------------------------------------------------------------------ phase 8
 def reset_launches():
-    from gaml_tpu_torch.ops import extend_cuda
+    """Every launch count of the band and candgen kernels, and
+    query_plain's call count, set to 0; returns the band kernels'."""
+    from gaml_tpu_torch.ops import candgen_cuda, candgen_device, extend_cuda
 
-    for k in extend_cuda.LAUNCHES:
-        extend_cuda.LAUNCHES[k] = 0
+    for counts in (extend_cuda.LAUNCHES, candgen_cuda.LAUNCHES,
+                   candgen_device.PLAIN_CALLS):
+        for k in counts:
+            counts[k] = 0
     return extend_cuda.LAUNCHES
 
 
@@ -1788,7 +2060,7 @@ def phase_mixed_anneal(device, d, iterations=30, check_iterations=10,
                           os.path.join(d, f"t{k}.fq"), rng) for k in (1, 2)]
     res, diff, _tr = anneal_against_cpu_and_bfs(
         device, d, iterations, check_iterations, timeout,
-        ("extend_exact",), frag="t",
+        ("extend_exact", "candgen_runs"), frag="t",
         tag="mixed_")
     check(res["launches"]["dp_rows_exact"] == 0,
           f"the mixed anneal launched dp_rows_exact: {res['launches']}")
@@ -1954,7 +2226,8 @@ def paired_flag(device, d, flag, iterations, want, timeout,
            if per_move else 0,
            "launches": {k: sum_b["launches"][k] + (
                sum_a["launches"][k] if text_a is not text_b else 0)
-               for k in ("extend_exact", "extend_exact_staged")}}
+               for k in ("extend_exact", "extend_exact_staged",
+                         "candgen_runs", "query_plain")}}
     print(f"  {flag} " + json.dumps(res), flush=True)
     # the second run's trace and .walks, for phase 12's world of two
     res["ref"] = {"trace": tr_b, "walks": walks(name + "_b"),
@@ -2034,7 +2307,7 @@ def phase_device_scorers(device, d, d_pb, pb_genome, anneal=None, pb=None,
     ref["move_s"] = move_s
     res = {"host_ms_per_move": ref["anneal_s"] / iterations * 1e3}
     launches = {"extend_exact": 0, "extend_exact_staged": 0,
-                "banded_forward": 0}
+                "banded_forward": 0, "candgen_runs": 0, "query_plain": 0}
     for flag, its, want, its_b, win, keep in (
             ("--paired-device-inc", iterations, ref, second_iterations,
              window, 100),
@@ -2111,6 +2384,8 @@ def phase_device_scorers(device, d, d_pb, pb_genome, anneal=None, pb=None,
             5, host_clock=True),
         "launches": staged_launches}
     print("  single_end " + json.dumps(res["single_end"]), flush=True)
+    check(device.type != "cuda" or launches["query_plain"] == 0,
+          f"phase 11 ran query_plain on the card: {launches}")
     res["launches"] = launches
     return res
 
@@ -2297,7 +2572,7 @@ def phase_distributed(device, d, d_pb, pb_genome, scorers, models,
     from gaml_tpu_torch.tools import dryrun_distributed as dryrun
 
     launches = {"extend_exact": 0, "extend_exact_staged": 0,
-                "banded_forward": 0}
+                "banded_forward": 0, "candgen_runs": 0, "query_plain": 0}
 
     def count(counts):
         for k in launches:
@@ -2423,12 +2698,14 @@ def phase_distributed(device, d, d_pb, pb_genome, scorers, models,
                                        "ms", "launches")} for rep in ranks]}
     print("  single_end world (2, 1) " + json.dumps(res["single_end"]),
           flush=True)
+    check(device.type != "cuda" or launches["query_plain"] == 0,
+          f"phase 12 ran query_plain on the card: {launches}")
     res["launches"] = launches
     return res
 
 
 def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed,
-                 scorers, dist):
+                 scorers, dist, bench, aureus):
     """{"kernels": [...]}: one entry per TPU kernel with the numbers of
     the phases that measured it.  K1-K4 are all served by one kernel,
     the exact two-direction extension.  Launches come from the runs of
@@ -2453,7 +2730,13 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed,
     instruction count, and K5's registers, spills and MUFU count per
     width (phase 0).  K5's max_abs_err is against the float32 plain
     version; the float64 one, the twin's and the adversarial batch's
-    stand beside it, the largest over both widths."""
+    stand beside it, the largest over both widths.  The candgen entry
+    (no TPU kernel: the JAX package's XLA graph) is the kernel route on
+    phase 2's world from the uploaded codes against query_plain, with
+    phase 3's numbers beside it; its launches are its queries (runs-pass
+    launches) on the main paths: phases 2-3's rescores and jobs, the
+    anneals of phases 4 and 10, phase 11's and phase 12's; no PyTorch
+    call computes a max-hash window query, so library_ms is null."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     more = ("share", "rows", "lane_ops", "bytes", "bound_ms_stacked_count")
     res = kern["extend_exact"]
@@ -2521,13 +2804,37 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed,
                       + p12["banded_forward"],
                       launches_phase11=p11["banded_forward"],
                       launches_phase12=p12["banded_forward"])
+    candgen = candgen_entry(card, bench["candgen"], aureus["candgen"],
+                            (anneal["launches"], mixed["launches"], p11,
+                             p12))
     return {"kernels": [
         dict({k: kern[tpu][k] for k in keys}, name=name, tpu_kernel=tpu,
              route="cuda", source=source, replaces=replaces,
              launches=kern[tpu]["launches"], library_ms=None,
              **{k: v for k, v in kern[tpu].items()
                 if k not in keys and k != "launches"})
-        for tpu, name, source, replaces in KERNELS]}
+        for tpu, name, source, replaces in KERNELS] + [candgen]}
+
+
+def candgen_entry(card, cg, cg3, runs):
+    """The kernels line's candgen entry from phase 2's (``cg``) and phase
+    3's (``cg3``) numbers, phase 0's compiler output and the launch
+    counts of the main-path runs ``runs`` (phase 4's and 10's CLI
+    summaries, phase 11's and 12's sums)."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    main = dict(zip(("phase_4", "phase_10", "phase_11", "phase_12"),
+                    (r["candgen_runs"] for r in runs)),
+                phases_2_3=cg["launches"] + cg3["launches"])
+    return dict(
+        {k: cg[k] for k in keys}, name=CANDGEN[0], tpu_kernel=None,
+        route="cuda", source=CANDGEN[1], replaces=CANDGEN[2],
+        launches=sum(main.values()), library_ms=None, launches_by_phase=main,
+        query_plain_calls_on_main_paths=sum(r["query_plain"] for r in runs),
+        world=f"400 kb, {cg['candidates']} candidates", share=cg["share"],
+        int32_ops=cg["int32_ops"], bytes=cg["bytes"], runs=cg["runs"],
+        split=cg["split"],
+        aureus={k: cg3[k] for k in keys + ("share", "candidates", "split")},
+        fuzz=cg3["fuzz"], compiled={k: card.get(k) for k in CANDGEN_KERNELS})
 
 
 def run_phase(name, fn, *args, **kw):
@@ -2551,14 +2858,17 @@ def main():
         return 2
     if sys.argv[1:2] == ["--rank"]:
         return rank_main(sys.argv[2])
+    if sys.argv[1:2] == ["--candgen-split"]:
+        return candgen_split_main(sys.argv[2:] or ("plain", "kernel"))
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     card = run_phase("0 card", phase_card)
     kern = run_phase("1 kernels", phase_kernels, device)
     rescore_launches = {}
-    run_phase("2 rescore 400 kb", phase_rescore, device, 400_000, 100_000,
-              launches=rescore_launches, jobs=4)
-    run_phase("3 rescore 2.8 Mb", phase_rescore, device, 2_800_000, 300_000)
+    bench = run_phase("2 rescore 400 kb", phase_rescore, device, 400_000,
+                      100_000, launches=rescore_launches, jobs=4)
+    aureus = run_phase("3 rescore 2.8 Mb", phase_rescore, device, 2_800_000,
+                       300_000, fuzz=200)
     with tempfile.TemporaryDirectory(prefix="gaml_smoke_") as d_aureus, \
             tempfile.TemporaryDirectory(prefix="gaml_smoke_pb_") as d_pb:
         t0 = time.perf_counter()
@@ -2584,7 +2894,8 @@ def main():
     check(not foreign, f"modules of jax or the JAX package were imported: "
           f"{foreign}")
     print(json.dumps(kernels_line(card, kern, anneal, fwd, pb, exact, models,
-                                  mixed, scorers, dist)), flush=True)
+                                  mixed, scorers, dist, bench, aureus)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

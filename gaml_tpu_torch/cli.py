@@ -239,9 +239,11 @@ def run(args, device: str, rank: int = 0, world: int = 1) -> int:
             pacbio_cells[k] = pacbio_cells.get(k, 0) + v
     launches = {}
     if args.backend == "device" or pacbio:
-        from .ops import extend_cuda, forward_cuda
+        from .ops import candgen_cuda, candgen_device, extend_cuda, \
+            forward_cuda
 
-        launches = {**extend_cuda.LAUNCHES, **forward_cuda.LAUNCHES}
+        launches = {**extend_cuda.LAUNCHES, **forward_cuda.LAUNCHES,
+                    **candgen_cuda.LAUNCHES, **candgen_device.PLAIN_CALLS}
     print("device work: " + json.dumps({
         "device": device,
         "backend": args.backend,

@@ -20,7 +20,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("band_dp.cu", "banded_forward.cu")
+SOURCES = ("band_dp.cu", "banded_forward.cu", "candgen.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -117,6 +117,18 @@ def load():
                                             p, i, i, ctypes.c_float,
                                             ctypes.c_float, p, p]
         lib.gaml_banded_forward.restype = i
+        lib.gaml_candgen_tile.argtypes = []
+        lib.gaml_candgen_tile.restype = i
+        lib.gaml_candgen_runs.argtypes = [p, p, p, i, i, i, p, i, p, i, p, p,
+                                          p, p]
+        lib.gaml_candgen_runs.restype = i
+        lib.gaml_candgen_scan.argtypes = [p, i, p, p, p]
+        lib.gaml_candgen_scan.restype = i
+        lib.gaml_candgen_expand.argtypes = [p, p, p, p, i, p, p, p]
+        lib.gaml_candgen_expand.restype = i
+        lib.gaml_candgen_finish.argtypes = [p, p, p, p, p,
+                                            ctypes.c_longlong] + [p] * 6
+        lib.gaml_candgen_finish.restype = i
         build_info["path"] = so
         _lib = lib
         return lib

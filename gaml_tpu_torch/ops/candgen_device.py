@@ -1,7 +1,11 @@
-"""Device candidate generation: the max-hash window query in torch.
+"""Device candidate generation: the max-hash window query.
 
 Port of gaml_tpu/ops/candgen_device.py, same semantics (all bit-exact
-against the native C++ query, tests/test_torch_candgen.py):
+against the native C++ query, tests/test_torch_candgen.py).  On a card
+``DeviceCandGen.query`` runs the hand-written kernel of csrc/candgen.cu
+(ops/candgen_cuda.py: four launches, one torch sort, one host
+synchronisation); ``query_plain``, the same query as a chain of torch
+operations, is its plain version and the CPU route.  What both compute:
 
 - GetMinHashWithPoses (graph.cc:1289-1323): slide a read-length window
   over each segment, take the max k-mer hash per window with the first
@@ -21,6 +25,7 @@ without candidates, and a retry with cap >= n_total succeeds.
 """
 from __future__ import annotations
 
+import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -54,25 +59,49 @@ class Candidates(NamedTuple):
         return self.rid is None
 
 
-def pack_windows(seqs: List[np.ndarray]):
-    """A window batch as one 2-bit packed buffer, for the upload: (packed2
-    uint8 [ceil(g_total / 4)], fixpos int64 positions of the non-ACGT
-    codes, seg_base and seg_len int64 [n_seg], g_total)."""
-    seg_len = np.array([len(s) for s in seqs], dtype=np.int64)
-    g_total = int(seg_len.sum())
-    buf = np.zeros(4 * -(-g_total // 4), dtype=np.uint8)
-    if g_total:
-        buf[:g_total] = np.concatenate(seqs)
-    fixpos = np.flatnonzero(buf >= 4)
-    c = np.where(buf < 4, buf, 0).astype(np.uint8)
-    packed2 = c[0::4] | (c[1::4] << 2) | (c[2::4] << 4) | (c[3::4] << 6)
-    seg_base = np.zeros(len(seqs), dtype=np.int64)
-    np.cumsum(seg_len[:-1], out=seg_base[1:])
-    return packed2, fixpos, seg_base, seg_len, g_total
-
-
 def _shift_left(a: torch.Tensor, sh: int, fill: int) -> torch.Tensor:
     return torch.cat([a[sh:], a.new_full((sh,), fill)])
+
+
+# calls of DeviceCandGen.query_plain: on a card every query runs the
+# kernel, so a card's main path leaves this at 0
+PLAIN_CALLS = {"query_plain": 0}
+
+
+def _marker(split: Optional[list], device: torch.device):
+    """mark(stage): appends (stage, a CUDA event recorded now on the
+    current stream, or the host clock on the CPU) to ``split``; a no-op
+    when ``split`` is None.  ``stage_ms`` reads the list."""
+    if split is None:
+        return lambda stage: None
+
+    def mark(stage):
+        if device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            split.append((stage, ev))
+        else:
+            split.append((stage, time.perf_counter()))
+
+    mark("start")
+    return mark
+
+
+def stage_ms(split: list) -> dict:
+    """{stage: ms} of a ``split`` list filled by one or more queries (the
+    same stage's spans summed), the span from the mark before each mark
+    to it; synchronises on the last event."""
+    out = {}
+    for (_a, t0), (stage, t1) in zip(split, split[1:]):
+        if stage == "start":
+            continue
+        if hasattr(t1, "elapsed_time"):
+            t1.synchronize()
+            ms = t0.elapsed_time(t1)
+        else:
+            ms = (t1 - t0) * 1e3
+        out[stage] = out.get(stage, 0.0) + ms
+    return out
 
 
 class DeviceCandGen:
@@ -95,31 +124,71 @@ class DeviceCandGen:
             np.asarray(bundle.row_of).astype(np.int64), device=dev)
 
     def upload(self, seqs: List[np.ndarray]):
-        """Window batch -> (codes uint8 [g_total], seg_base, seg_len int64
-        [n_seg]) on the device.  Ships the 2-bit packed buffer of
-        pack_windows and restores the non-ACGT codes on the device."""
-        dev = self.device
-        packed2, fixpos, seg_base, seg_len, g_total = pack_windows(seqs)
-        p2 = torch.as_tensor(packed2, device=dev).to(torch.int64)
-        shifts = torch.arange(0, 8, 2, device=dev)
-        codes = ((p2.unsqueeze(1) >> shifts) & 3).reshape(-1)[:g_total]
-        codes[torch.as_tensor(fixpos, device=dev)] = 4
-        return (codes.to(torch.uint8), torch.as_tensor(seg_base, device=dev),
-                torch.as_tensor(seg_len, device=dev))
+        """Window batch -> (codes uint8 [g_total], every non-ACGT code as
+        4; seg_base, seg_len int64 [n_seg]) on the device: the codes and
+        the segment table in one pinned host buffer, one copy that does
+        not block the host.  (The JAX package packs 2 bits a code to
+        spare the TPU's remote link; here that packing cost more host
+        time than the copy it saved.)"""
+        n = len(seqs)
+        seg_len = np.fromiter((len(x) for x in seqs), np.int64, n)
+        g = int(seg_len.sum())
+        g8 = -(-g // 8) * 8
+        host = torch.empty(g8 + 16 * n, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        buf = host.numpy()
+        if g:
+            np.concatenate(seqs, out=buf[:g])
+        meta = buf[g8:].view(np.int64).reshape(2, n)
+        meta[1] = seg_len
+        if n:
+            meta[0, 0] = 0
+            np.cumsum(seg_len[:-1], out=meta[0, 1:])
+        dev = host.to(self.device, non_blocking=True)
+        seg = dev[g8:].view(torch.int64).view(2, n)
+        # clamped on the device: numpy's uint8 minimum cost more host time
+        # than the copy
+        return dev[:g].clamp_(max=4), seg[0], seg[1]
 
     def query(self, seqs: List[np.ndarray] = None, cap: Optional[int] = None,
-              staged=None) -> Candidates:
+              staged=None, split: Optional[list] = None) -> Candidates:
         """Candidates of a window batch (``cap`` None: unbounded);
-        ``staged``: an ``upload`` result to use instead of ``seqs``."""
+        ``staged``: an ``upload`` result to use instead of ``seqs``.  On a
+        CUDA device the hand-written kernel (ops.candgen_cuda, one host
+        synchronisation), on the CPU ``query_plain``.  ``split``: a list
+        that receives (stage, mark) at the end of each stage (a CUDA event
+        on the card, a host clock reading on the CPU)."""
+        if self.device.type == "cpu":
+            return self.query_plain(seqs, cap, staged, split)
+        from .candgen_cuda import query_kernel
+
+        mark = _marker(split, self.device)
+        batch = staged if staged is not None else self.upload(seqs)
+        mark("upload")
+        return query_kernel(self, *batch, cap, mark)
+
+    def _empty(self, codes_u8, seg_base, seg_len) -> Candidates:
+        return Candidates(0, *(torch.zeros(0, dtype=torch.int64,
+                                           device=self.device)
+                               for _ in range(5)), codes_u8, seg_base,
+                          seg_len)
+
+    def query_plain(self, seqs: List[np.ndarray] = None,
+                    cap: Optional[int] = None, staged=None,
+                    split: Optional[list] = None) -> Candidates:
+        """``query`` as a chain of torch operations: the kernel's plain
+        version (the CPU route, and the card's yardstick).  Three host
+        synchronisations on the card (two ``nonzero``, the count)."""
+        PLAIN_CALLS["query_plain"] += 1
+        mark = _marker(split, self.device)
         codes_u8, seg_base, seg_len = staged if staged is not None else \
             self.upload(seqs)
+        mark("upload")
         dev = self.device
         g = codes_u8.shape[0]
         L = self.read_len
         w = L - K + 1  # k-mers per window
-        none = Candidates(0, *(torch.zeros(0, dtype=torch.int64, device=dev)
-                               for _ in range(5)), codes_u8, seg_base,
-                          seg_len)
+        none = self._empty(codes_u8, seg_base, seg_len)
         if w <= 0 or g < L:
             return none
         codes = codes_u8.to(torch.int64)
@@ -134,6 +203,7 @@ class DeviceCandGen:
         end = (j + L - 1).clamp(max=g - 1)
         wv = (j + L - 1 < g) & (pid[end] == pid) & (segl >= L)
         prev_pid = torch.cat([pid.new_full((1,), -1), pid[:-1]])
+        mark("segments")
 
         def runs(buf):
             """(s, fingerprint k-mer start, CSR count, CSR start) per
@@ -144,6 +214,7 @@ class DeviceCandGen:
             for i in range(K):
                 h = (h << 2) | v[i:i + g]
             h = h ^ int(HASH_XOR)
+            mark("hash")
             # max over k-mer starts [s, s+w), first start wins ties: the
             # low half of the key is the complemented position
             key = (h << 32) | (_POS_MASK - j)
@@ -153,21 +224,25 @@ class DeviceCandGen:
                 size *= 2
             if size < w:
                 key = torch.maximum(key, _shift_left(key, w - size, -1))
+            mark("window_max")
             fp = key >> 32
             prev_fp = torch.cat([fp.new_full((1,), -1), fp[:-1]])
             newrun = wv & ((pid != prev_pid) | (fp != prev_fp))
             s = torch.nonzero(newrun).squeeze(1)
+            mark("runs_nonzero")
             fp_c = fp[s]
             kp_c = _POS_MASK - (key[s] & _POS_MASK)
             idx = torch.searchsorted(self.sf, fp_c)
             found = self.sf[idx] == fp_c
             cnt = torch.where(found, self.off[idx + 1] - self.off[idx], 0)
+            mark("searchsorted")
             return s, kp_c, cnt, self.off[idx]
 
         s_f, kp_f, cnt_f, lo_f = runs(codes)
         s_r, kp_r, cnt_r, lo_r = runs(rc_codes)
         counts = torch.cat([cnt_f, cnt_r])
         n_total = int(counts.sum())
+        mark("count_sync")
         if cap is not None and n_total > cap:
             return Candidates(n_total, None, None, None, None, None,
                               codes_u8, seg_base, seg_len)
@@ -185,10 +260,13 @@ class DeviceCandGen:
         loc = torch.cat([kp_f, kp_r])[rix] - seg_base[seg]
         g0 = torch.where(orient == 1, seg_len[seg] - loc - K, loc)
         r0 = self.seed2[self.row_of[rid], orient]
+        mark("expand")
         order = torch.sort((seg << 32) | rid, stable=True).indices
-        return Candidates(n_total, rid[order], g0[order], r0[order],
-                          orient[order], seg[order], codes_u8, seg_base,
-                          seg_len)
+        out = Candidates(n_total, rid[order], g0[order], r0[order],
+                         orient[order], seg[order], codes_u8, seg_base,
+                         seg_len)
+        mark("sort")
+        return out
 
     def query_host(self, seqs: List[np.ndarray], cap: Optional[int] = None):
         """Blocking host view for tests: a list of (rid, g0, r0, orient)

@@ -1,0 +1,242 @@
+"""The candidate generation kernel (csrc/candgen.cu, ops/candgen_cuda.py).
+
+On the CPU the kernel's tiled algorithm runs as its numpy twin
+(``query_twin``), held bit-equal to ``DeviceCandGen.query_plain`` (which
+tests/test_torch_candgen.py holds to the native query and the JAX
+package) at tiny tiles, so that windows, runs and segments cross tile
+edges: n_total and every candidate (rid, g0, r0, orient, seg) in order.
+The ``cuda`` tests hold the kernel itself to query_plain on the same
+worlds, and count one query's launches.  No jax import, so the card
+tests run where jax is missing:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_candgen_kernel.py
+"""
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from gaml_tpu_torch.core import dna
+from gaml_tpu_torch.index.maxhash import K_INDEX_KMER
+from gaml_tpu_torch.ops import candgen_cuda, candgen_device
+from gaml_tpu_torch.ops.candgen_cuda import query_twin
+from gaml_tpu_torch.ops.candgen_device import DeviceCandGen, stage_ms
+
+TILES = (7, 32, 128)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def native_library():
+    from gaml_tpu_torch import native
+
+    if native.get_lib() is None:
+        pytest.skip("native library unavailable")
+
+
+def make_bundle(reads):
+    """The native aligner bundle of a uniform-length read matrix (the
+    port's own index build; read id = row)."""
+    from gaml_tpu_torch.native import NativeAlignBundle, read_index_build
+
+    fp, ok_m, _k, _rc, seed_pos = read_index_build(reads, K_INDEX_KMER)
+    okb = ok_m.astype(bool)
+    rids = np.arange(len(reads), dtype=np.int64)[okb]
+    order = np.argsort(fp[okb], kind="stable")
+    sf, sr = fp[okb][order], rids[order]
+    index = {}
+    if len(sf):
+        bounds = np.nonzero(np.diff(sf))[0] + 1
+        starts = np.concatenate(([0], bounds)).tolist()
+        ends = np.concatenate((bounds, [len(sf)])).tolist()
+        index = {int(sf[s]): sr[s:e].tolist() for s, e in zip(starts, ends)}
+    return NativeAlignBundle(index, reads.shape[1], reads,
+                             dna._COMP_LUT[reads][:, ::-1], seed_pos,
+                             np.arange(len(reads), dtype=np.int32))
+
+
+def world(seed, read_len=30, n_seg=5, seg_lens=(0, 200), n_rate=0.0,
+          tandem=False, foreign=False, n_reads=200):
+    """(reads, window segments): segments of random or tandem-repeat
+    sequence with N codes at ``n_rate``; reads sampled from them with 2 %
+    substitutions, half reverse-complemented (from another genome when
+    ``foreign``: no hits)."""
+    rng = np.random.default_rng(seed)
+    if tandem:
+        motif = rng.integers(0, 4, int(rng.integers(3, 12))).astype(np.uint8)
+        src = np.tile(motif, 4000 // len(motif) + 1)[:4000]
+    else:
+        src = rng.integers(0, 4, 4000).astype(np.uint8)
+    segs = []
+    for _ in range(n_seg):
+        ln = int(rng.integers(seg_lens[0], seg_lens[1] + 1))
+        at = int(rng.integers(0, len(src) - ln + 1))
+        s = src[at:at + ln].copy()
+        s[rng.random(ln) < n_rate] = 4
+        segs.append(s)
+    pool = rng.integers(0, 4, 4000).astype(np.uint8) if foreign else src
+    starts = rng.integers(0, len(pool) - read_len + 1, n_reads)
+    reads = pool[starts[:, None] + np.arange(read_len)]
+    errs = rng.random(reads.shape) < 0.02
+    reads[errs] = (reads[errs] + rng.integers(1, 4, int(errs.sum()))) % 4
+    flip = rng.random(n_reads) < 0.5
+    reads[flip] = dna._COMP_LUT[reads[flip]][:, ::-1]
+    return reads, segs
+
+
+WORLDS = {
+    "one_segment": dict(n_seg=1, seg_lens=(3000, 3000)),
+    "short_equal_long": dict(n_seg=40, seg_lens=(0, 70)),
+    "n_codes": dict(n_seg=6, seg_lens=(20, 600), n_rate=0.01),
+    "tandem_repeats": dict(n_seg=8, seg_lens=(10, 500), tandem=True),
+    "hundreds_of_segments": dict(n_seg=400, seg_lens=(0, 90)),
+    "zero_hits": dict(n_seg=5, seg_lens=(100, 400), foreign=True),
+}
+
+
+def assert_same(got, want):
+    assert got.n_total == want.n_total
+    assert got.overflow == want.overflow
+    if got.overflow:
+        return
+    for name in ("rid", "g0", "r0", "orient", "seg"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype == torch.int64, name
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy(),
+                                      err_msg=name)
+
+
+def twin_against_plain(reads, segs, tile, cap=None):
+    gen = DeviceCandGen(make_bundle(reads), "cpu")
+    staged = gen.upload(segs)
+    want = gen.query_plain(cap=cap, staged=staged)
+    assert_same(query_twin(gen, *staged, cap=cap, tile=tile), want)
+    return want
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("name", sorted(WORLDS))
+def test_twin_matches_plain(name, tile):
+    reads, segs = world(11, **WORLDS[name])
+    want = twin_against_plain(reads, segs, tile)
+    assert (want.n_total == 0) == (name == "zero_hits")
+
+
+@pytest.mark.parametrize("tile", TILES)
+def test_twin_cap_overflow_and_retry(tile):
+    reads, segs = world(5, n_seg=3, seg_lens=(300, 900))
+    gen = DeviceCandGen(make_bundle(reads), "cpu")
+    staged = gen.upload(segs)
+    over = query_twin(gen, *staged, cap=16, tile=tile)
+    assert over.overflow and over.n_total > 16
+    assert_same(over, gen.query_plain(cap=16, staged=staged))
+    assert_same(query_twin(gen, *staged, cap=over.n_total, tile=tile),
+                gen.query_plain(staged=staged))
+
+
+@settings(max_examples=25, deadline=None, derandomize=True, database=None)
+@given(seed=st.integers(0, 2 ** 31), read_len=st.sampled_from((15, 16, 23,
+                                                               40)),
+       n_seg=st.integers(1, 300), max_len=st.integers(1, 120),
+       n_rate=st.sampled_from((0.0, 0.003, 0.05)), tandem=st.booleans(),
+       foreign=st.booleans(), tile=st.sampled_from(TILES))
+def test_twin_matches_plain_on_random_worlds(seed, read_len, n_seg, max_len,
+                                             n_rate, tandem, foreign, tile):
+    reads, segs = world(seed, read_len, n_seg, (0, max_len), n_rate, tandem,
+                        foreign, n_reads=120)
+    twin_against_plain(reads, segs, tile)
+
+
+def test_cpu_query_runs_plain_and_splits():
+    """On the CPU ``query`` is query_plain (counted), with the split's
+    stages in order; the kernel's wrapper refuses a CPU index."""
+    reads, segs = world(2, n_seg=3, seg_lens=(200, 400))
+    gen = DeviceCandGen(make_bundle(reads), "cpu")
+    before = candgen_device.PLAIN_CALLS["query_plain"]
+    split = []
+    c = gen.query(segs, split=split)
+    assert candgen_device.PLAIN_CALLS["query_plain"] == before + 1
+    assert c.n_total > 0
+    assert list(stage_ms(split)) == [
+        "upload", "segments", "hash", "window_max", "runs_nonzero",
+        "searchsorted", "count_sync", "expand", "sort"]
+    with pytest.raises(ValueError, match="unsupported device"):
+        candgen_cuda.query_kernel(gen, *gen.upload(segs), None,
+                                  lambda _s: None)
+
+
+def test_kernel_wrapper_checks_its_inputs():
+    reads, segs = world(3, n_seg=2, seg_lens=(100, 200))
+    gen = DeviceCandGen(make_bundle(reads), "cpu")
+    codes, seg_base, seg_len = gen.upload(segs)
+    with pytest.raises(ValueError, match="codes must be uint8"):
+        candgen_cuda.check_batch(gen, codes.to(torch.int32), seg_base,
+                                 seg_len)
+    with pytest.raises(ValueError, match="seg_len must be int64"):
+        candgen_cuda.check_batch(gen, codes, seg_base, seg_len[:1])
+    gen.read_len = candgen_cuda.L_MAX + 1
+    with pytest.raises(ValueError, match="above the kernel"):
+        candgen_cuda.check_batch(gen, codes, seg_base, seg_len)
+
+
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def kernel_against_plain(reads, segs, device, cap=None):
+    gen = DeviceCandGen(make_bundle(reads), device)
+    staged = gen.upload(segs)
+    plain = candgen_device.PLAIN_CALLS["query_plain"]
+    got = gen.query(cap=cap, staged=staged)
+    torch.cuda.synchronize()
+    assert candgen_device.PLAIN_CALLS["query_plain"] == plain
+    want = gen.query_plain(cap=cap, staged=staged)
+    assert_same(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WORLDS))
+def test_kernel_matches_plain(name):
+    device = card()
+    reads, segs = world(11, **WORLDS[name])
+    kernel_against_plain(reads, segs, device)
+    for read_len in (15, 100):  # one k-mer a window; the rescore's length
+        reads, segs = world(12, read_len=read_len,
+                            **dict(WORLDS[name], n_reads=300))
+        kernel_against_plain(reads, segs, device)
+
+
+@pytest.mark.cuda
+def test_kernel_on_random_worlds_and_cap():
+    device = card()
+    rng = np.random.default_rng(0)
+    for seed in range(40):
+        reads, segs = world(seed, int(rng.choice([15, 16, 40, 100, 250])),
+                            int(rng.integers(1, 600)),
+                            (0, int(rng.integers(1, 3000))),
+                            float(rng.choice([0.0, 0.01])),
+                            bool(rng.random() < 0.3), bool(rng.random() < 0.1))
+        c = kernel_against_plain(reads, segs, device)
+        if c.n_total > 1:
+            kernel_against_plain(reads, segs, device, cap=c.n_total - 1)
+            kernel_against_plain(reads, segs, device, cap=c.n_total)
+
+
+@pytest.mark.cuda
+def test_kernel_launches_of_one_query():
+    device = card()
+    for foreign, want in ((False, 1), (True, 0)):
+        reads, segs = world(4, n_seg=20, seg_lens=(50, 3000),
+                            foreign=foreign)
+        gen = DeviceCandGen(make_bundle(reads), device)
+        for k in candgen_cuda.LAUNCHES:
+            candgen_cuda.LAUNCHES[k] = 0
+        c = gen.query(segs)
+        torch.cuda.synchronize()
+        assert (c.n_total > 0) == bool(want)
+        assert candgen_cuda.LAUNCHES == {
+            "candgen_runs": 1, "candgen_scan": 1, "candgen_expand": want,
+            "candgen_finish": want}
