@@ -35,7 +35,7 @@ the JAX package is imported.
    anneal-sized window batches cut from that genome (1-512 segments of
    60-3000 bp, N codes in every third) through the kernel, query_plain
    and the native query, all bit-equal;
-4. an anneal (300 iterations) through ``python -m gaml_tpu_torch.cli
+4. an anneal (200 iterations) through ``python -m gaml_tpu_torch.cli
    --device cuda`` on the 2.8 Mb paired world of
    examples/aureus_like_run.py, held against a ``--device cpu`` run of
    the same config and reported against the port's ``--backend bfs``;
@@ -70,13 +70,19 @@ the JAX package is imported.
    range, against the float64 host (ROADMAP C12);
 10. a mixed-length anneal: phase 4's world with 20 % of each frag mate
    file's reads quality-trimmed (no native bundle, so its windows run
-   on the host index and a resident ragged read set through the exact
-   extension, while the advice library keeps the device candgen),
-   ``--device cuda`` against ``--device cpu``, reported against
-   ``--backend bfs``; and the host split of one such window batch;
+   the candgen kernel over the max-hash index's own CSR and the exact
+   extension on a resident ragged read set, as the advice library's run
+   them on its uniform one), ``--device cuda`` against ``--device cpu``,
+   reported against ``--backend bfs``, the host pass gen_candidates
+   never called; the start scoring and first moves again in this
+   process, every frag batch's candidates held to query_plain and to
+   gen_candidates window by window, the start scoring split into its
+   stages beside gen_candidates' time on its windows, the card's busy
+   share over warm moves; and the split of one 64-window batch beside
+   gen_candidates on the same windows;
 11. the JAX CLI's four device scorers through the port's CLI on the
    card: ``--paired-device-inc`` and ``--device-state`` over phase 4's
-   anneal (210 iterations in their second runs), ``--paired-device``
+   anneal (130 iterations in their second runs), ``--paired-device``
    over 13 iterations, the first two flags each run twice (the second
    in this process under the profiler, each move timed; --paired-device
    only so, its second run phase 12's) and held to the default host
@@ -98,7 +104,8 @@ the JAX package is imported.
    beside world 1's, the host staging share, the busy share, launches.
 
 The anneals of phases 4 and 10-12 must launch the candgen kernel and
-never query_plain on the card.  ``python3 chip_smoke.py --candgen-split
+never query_plain on the card; those of phases 4 and 10 never the host
+candidate pass either.  ``python3 chip_smoke.py --candgen-split
 [plain] [kernel]`` runs only the candgen stage split of each route on
 phase 2's and phase 3's worlds and phase 4's first 100 moves' batches.
 
@@ -113,6 +120,7 @@ without the repository beside it, the script exits non-zero before any
 phase.
 """
 import concurrent.futures
+import contextlib
 import json
 import os
 import re
@@ -1056,9 +1064,11 @@ def anneal_against_cpu_and_bfs(device, d, iterations, check_iterations,
                                timeout, launched, frag="f", tag=""):
     """The port's CLI on ``device`` against --device cpu (must agree over
     the cpu run's iterations) and against the port's --backend bfs, the
-    native host route (reported), on the world in ``d``; outputs and caches are named
-    <tag>dev, <tag>bfs, <tag>cpu.  Every kernel named in ``launched``
-    must have been launched by the ``device`` run."""
+    native host route (reported, with its anneal_s), on the world in
+    ``d``; outputs and caches are named <tag>dev, <tag>bfs, <tag>cpu.
+    Every kernel named in ``launched`` must have been launched by the
+    ``device`` run, and neither it nor the cpu run may call the host
+    candidate pass (gen_candidates)."""
     dev, bfs, cpu = (tag + x for x in ("dev", "bfs", "cpu"))
     dev_out, dev_wall = run_cli(
         "gaml_tpu_torch.cli", write_config(d, dev, iterations, frag),
@@ -1071,6 +1081,9 @@ def anneal_against_cpu_and_bfs(device, d, iterations, check_iterations,
         ["--device", "cpu"], timeout)
     dev_tr, bfs_tr, cpu_tr = trace(dev_out), trace(bfs_out), trace(cpu_out)
     summary = summary_of(dev_out)
+    for out in (dev_out, cpu_out):
+        check(summary_of(out)["launches"]["gen_candidates"] == 0,
+              f"the anneal ran the host candidate pass: {summary_of(out)}")
     check(len(dev_tr) >= iterations and len(cpu_tr) >= check_iterations,
           f"short traces: {len(dev_tr)} / {len(cpu_tr)} itnum lines")
     check(dev_tr[:len(cpu_tr)] == cpu_tr,
@@ -1098,6 +1111,7 @@ def anneal_against_cpu_and_bfs(device, d, iterations, check_iterations,
            "dev_wall_s": dev_wall, "bfs_wall_s": bfs_wall,
            "cpu_wall_s": cpu_wall, "cpu_iterations": check_iterations,
            "dev_anneal_s": summary["anneal_s"],
+           "bfs_anneal_s": summary_of(bfs_out)["anneal_s"],
            "ms_per_move": summary["anneal_s"] / iterations * 1e3,
            "best_prob": best, "batches": summary["batches"],
            "candidates": summary["candidates"],
@@ -1108,7 +1122,7 @@ def anneal_against_cpu_and_bfs(device, d, iterations, check_iterations,
     return res, diff, dev_tr
 
 
-def phase_anneal(device, d, world, iterations=300, check_iterations=40,
+def phase_anneal(device, d, world, iterations=200, check_iterations=40,
                  timeout=450):
     """The anneal on the aureus world written to ``d`` (``world``: its
     genome length, node count and seconds to write)."""
@@ -1595,12 +1609,14 @@ def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
 
 # ------------------------------------------------------------------ phase 8
 def reset_launches():
-    """Every launch count of the band and candgen kernels, and
-    query_plain's call count, set to 0; returns the band kernels'."""
+    """Every launch count of the band and candgen kernels, and the call
+    counts of query_plain and of the host pass gen_candidates, set to 0;
+    returns the band kernels'."""
+    from gaml_tpu_torch.align import aligner
     from gaml_tpu_torch.ops import candgen_cuda, candgen_device, extend_cuda
 
     for counts in (extend_cuda.LAUNCHES, candgen_cuda.LAUNCHES,
-                   candgen_device.PLAIN_CALLS):
+                   candgen_device.PLAIN_CALLS, aligner.HOST_CALLS):
         for k in counts:
             counts[k] = 0
     return extend_cuda.LAUNCHES
@@ -1983,64 +1999,210 @@ def trim_fastq(src, dst, rng, share=0.2, lo=60, hi=99):
     return int(cut.sum())
 
 
-def mixed_batch_split(device, d, n_windows=64, reps=5):
-    """The host split of one no-bundle window batch: the trimmed frag
-    library's first mate file as a device read set (no native bundle),
-    and n_windows windows of three consecutive chain nodes aligned in one
-    align_subpaths_batch call, its stages timed by wrapping them (medians
-    over warm batches): gen_candidates (the host index, window by
-    window), the extension (DeviceExtender.run on the resident ragged
-    read set: window upload, one exact launch, and its closure: results
-    back) and window_columns (host dedup); ``other_ms`` is the rest
-    (spelling the windows, gathering the candidates' arrays)."""
-    from gaml_tpu_torch.align import aligner as al_mod
-    from gaml_tpu_torch.core.io import load_lastgraph
-    from gaml_tpu_torch.ops import extend_device
-    from gaml_tpu_torch.scoring.readset import ReadSet
+ROUTE_STAGES = ("build", "query", "extend", "fetch", "columns")
 
-    graph = load_lastgraph(os.path.join(d, "LastGraph"))
-    rs = ReadSet(os.path.join(d, "split_t1"), os.path.join(d, "t1.fq"),
-                 MATCH, MISMATCH, backend="device", device=device)
-    rs.preprocess_reads()
-    rs.prepare_read_index()
-    al = rs.aligner
-    check(getattr(al, "native_bundle", None) is None,
-          "the trimmed read set has a native bundle")
-    windows = [(2 * i, 2 * i + 2, 2 * i + 4) for i in range(n_windows)]
-    spent = {}
-    real = {"candgen": (al_mod, "gen_candidates"),
-            "extend": (extend_device.DeviceExtender, "run"),
-            "columns": (al_mod, "window_columns")}
-    saved = {k: getattr(mod, name) for k, (mod, name) in real.items()}
+
+@contextlib.contextmanager
+def route_stage_timers(spent, live=lambda: True):
+    """Wraps the stages of the device route's window batches
+    (SubpathAligner._align_subpaths_batch_device) for the host clock,
+    adding seconds to ``spent`` while ``live()``: "build"
+    (SubpathAligner.ensure_device_rescorer: the read set's engine, built
+    by its first batch), "query" (DeviceCandGen.query: the upload and the
+    query to its one host synchronisation), "extend" (DeviceExtender.
+    extend: the exact extension's launch), "fetch" (the closure of
+    DeviceRescorer.extend: the results back, which waits for the card)
+    and "columns" (window_columns, the host dedup)."""
+    from gaml_tpu_torch.align import aligner as al_mod
+    from gaml_tpu_torch.ops.candgen_device import DeviceCandGen
+    from gaml_tpu_torch.ops.extend_device import DeviceExtender
+    from gaml_tpu_torch.ops.rescore_device import DeviceRescorer
+
+    sites = {"build": (al_mod.SubpathAligner, "ensure_device_rescorer"),
+             "query": (DeviceCandGen, "query"),
+             "extend": (DeviceExtender, "extend"),
+             "fetch": (DeviceRescorer, "extend"),
+             "columns": (al_mod, "window_columns")}
+    saved = {k: getattr(mod, name) for k, (mod, name) in sites.items()}
 
     def timed(key, fn):
         def wrapper(*args, **kw):
             t0 = time.perf_counter()
             out = fn(*args, **kw)
-            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
-            return timed(key, out) if callable(out) else out
+            if live():
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+            return out
         return wrapper
 
-    for key, (mod, name) in real.items():
-        setattr(mod, name, timed(key, saved[key]))
-    rows = []
+    def fetch_timed(fn):  # DeviceRescorer.extend: time its closure only
+        return lambda *args, **kw: timed("fetch", fn(*args, **kw))
+
+    for key, (mod, name) in sites.items():
+        setattr(mod, name, fetch_timed(saved[key]) if key == "fetch"
+                else timed(key, saved[key]))
     try:
-        al.align_subpaths_batch(graph, windows)  # builds the read set
-        for _ in range(reps):
-            spent.clear()
+        yield spent
+    finally:
+        for key, (mod, name) in sites.items():
+            setattr(mod, name, saved[key])
+
+
+def host_pass_against(got, al, seqs, what):
+    """The kernel's candidates ``got`` of the windows ``seqs`` bit-equal
+    to the host pass gen_candidates run window by window on the
+    aligner's own index, reads and read cache; returns its seconds."""
+    from gaml_tpu_torch.align.aligner import gen_candidates
+
+    t0 = time.perf_counter()
+    host = [gen_candidates(al.index, al.read_seqs, s, al._read_cache)
+            for s in seqs]
+    spent = time.perf_counter() - t0
+    for i, (x, h) in enumerate(zip(native_layout(got, len(seqs)), host)):
+        y = [np.array([getattr(c, f) for c, _r in h], np.int32) for f in
+             ("read_id", "genome_pos", "read_pos", "orientation")]
+        for name, u, v in zip(("rid", "g0", "r0", "orient"), x, y):
+            check(np.array_equal(u, v), f"{what} window {i}: {name} "
+                  f"differs from gen_candidates")
+    return spent
+
+
+def mixed_anneal_batches(device, d, iterations=12, window=(1, 10)):
+    """The trimmed anneal in this process on ``device`` (cli_in_process,
+    ``iterations`` moves, the profiler over moves 3-12 only): every window
+    batch of the frag read sets (no native bundle, so their engine is
+    DeviceCandGen.from_index's) recorded where it reaches
+    DeviceCandGen.query, with its move (0: the start scoring, the
+    anneal's first ProbCalculator.calc_prob, which aligns every start
+    walk's windows); every query counted by library (frag, advice); the
+    start scoring split by route_stage_timers, "rest" its calc_prob
+    wall less the stages.  Then on each recorded batch the kernel's
+    candidates bit-equal to query_plain and to gen_candidates window by
+    window (host_pass_against; its seconds on the start scoring's
+    batches are the yardstick of the host pass the route replaced).
+    Returns (the result, the aligner of the first frag read set queried:
+    the first mate file's)."""
+    from gaml_tpu_torch.align.aligner import SubpathAligner
+    from gaml_tpu_torch.ops.candgen_device import DeviceCandGen
+    from gaml_tpu_torch.optimize.anneal import Optimizer
+    from gaml_tpu_torch.scoring.calculator import ProbCalculator
+
+    move, owner, rec, seen = [0], {}, [], set()
+    queries = {"frag": 0, "advice": 0}
+    calc_s = []
+    real = (SubpathAligner.ensure_device_rescorer, DeviceCandGen.query,
+            Optimizer.step, ProbCalculator.calc_prob)
+
+    def ensure(self):
+        resc = real[0](self)
+        if resc is not None and getattr(self, "native_bundle", None) is None:
+            owner[id(resc.gen)] = self
+        return resc
+
+    def query(self, seqs=None, cap=None, staged=None, split=None):
+        frag = id(self) in owner
+        queries["frag" if frag else "advice"] += 1
+        if frag and id(seqs) not in seen:  # a retry queries seqs again
+            seen.add(id(seqs))
+            rec.append((self, owner[id(self)], seqs, move[0]))
+        return real[1](self, seqs, cap, staged, split)
+
+    def step(self, *args, **kw):
+        move[0] += 1
+        return real[2](self, *args, **kw)
+
+    def calc_prob(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = real[3](self, *args, **kw)
+        if move[0] == 0:
+            calc_s.append(time.perf_counter() - t0)
+        return out
+
+    (SubpathAligner.ensure_device_rescorer, DeviceCandGen.query,
+     Optimizer.step, ProbCalculator.calc_prob) = (ensure, query, step,
+                                                  calc_prob)
+    spent = {}
+    try:
+        with route_stage_timers(spent, lambda: move[0] == 0):
+            _out, summary, wall, busy_ms, span, move_s = cli_in_process(
+                device, d, write_config(d, "mixed_rec", iterations, "t"), [],
+                env={"GAML_DEV_MIN_BASES": "0"}, window=window)
+    finally:
+        (SubpathAligner.ensure_device_rescorer, DeviceCandGen.query,
+         Optimizer.step, ProbCalculator.calc_prob) = real
+    launches = summary["launches"]
+    check(queries["frag"] > 0 and queries["advice"] > 0,
+          f"a library ran no candgen query: {queries}")
+    check(launches["gen_candidates"] == 0 and (
+        device.type != "cuda" or launches["query_plain"] == 0),
+        f"the in-process anneal left the kernel route: {launches}")
+    check(any(m == 0 for *_x, m in rec), "no start-scoring batch recorded")
+    start = sum(calc_s)
+    res = {"moves": iterations, "wall_s": wall, "start_ms": start * 1e3,
+           "start_split_ms": {k: spent.get(k, 0.0) * 1e3
+                              for k in ROUTE_STAGES},
+           "start_rest_ms": (start - sum(spent.values())) * 1e3,
+           "ms_per_warm_move": float(np.median(move_s[1:])) * 1e3,
+           "busy_share": None if busy_ms is None else busy_ms / (span * 1e3),
+           "profiled_moves": f"{window[0] + 2}-{window[0] + 1 + window[1]}",
+           "queries": queries, "launches": launches}
+    host_s, cands, bases = 0.0, {}, {}
+    for b, (gen, al, seqs, m) in enumerate(rec):
+        staged = gen.upload(seqs)
+        got = gen.query(staged=staged)
+        same_candidates(got, gen.query_plain(staged=staged),
+                        f"frag batch {b} (move {m})")
+        t = host_pass_against(got, al, seqs, f"frag batch {b} (move {m})")
+        tag = "start" if m == 0 else "moves"
+        host_s += t if m == 0 else 0.0
+        cands[tag] = cands.get(tag, 0) + got.n_total
+        bases[tag] = bases.get(tag, 0) + int(staged[0].shape[0])
+    res.update(recorded_batches=len(rec),
+               start_batches=sum(m == 0 for *_x, m in rec),
+               candidates=cands, bases=bases,
+               start_host_pass_ms=host_s * 1e3)
+    return res, rec[0][1]
+
+
+def mixed_batch_split(device, d, al, n_windows=64, reps=5):
+    """The host split of one no-bundle window batch on the trimmed frag
+    library's first mate file (``al``, its aligner from
+    mixed_anneal_batches): n_windows windows of three consecutive chain
+    nodes aligned in one align_subpaths_batch call, its stages timed by
+    route_stage_timers (medians over warm batches), "other_ms" the rest
+    (spelling the windows, the cap); beside it, on the same windows, the
+    host pass gen_candidates window by window (the route it replaced),
+    its candidates bit-equal to the kernel's."""
+    from gaml_tpu_torch.align.aligner import spell_subpath
+    from gaml_tpu_torch.core.io import load_lastgraph
+
+    graph = load_lastgraph(os.path.join(d, "LastGraph"))
+    check(getattr(al, "native_bundle", None) is None,
+          "the trimmed read set has a native bundle")
+    windows = [(2 * i, 2 * i + 2, 2 * i + 4) for i in range(n_windows)]
+    seqs = [spell_subpath(graph, w)[0] for w in windows]
+    check(min(map(len, seqs)) >= al.index.read_len,
+          "a split window is shorter than the query's read length")
+    got = al.ensure_device_rescorer().gen.query(seqs)
+    rows = []
+    for _ in range(reps + 1):
+        spent = {}
+        with route_stage_timers(spent):
             n0 = al.device_candidates
             t0 = time.perf_counter()
             al.align_subpaths_batch(graph, windows)
             total = time.perf_counter() - t0
-            rows.append({"total_ms": total * 1e3,
-                         **{f"{k}_ms": v * 1e3 for k, v in spent.items()},
-                         "other_ms": (total - sum(spent.values())) * 1e3,
-                         "candidates": al.device_candidates - n0})
-    finally:
-        for key, (mod, name) in real.items():
-            setattr(mod, name, saved[key])
+        rows.append({"total_ms": total * 1e3,
+                     **{f"{k}_ms": spent.get(k, 0.0) * 1e3
+                        for k in ROUTE_STAGES[1:]},
+                     "other_ms": (total - sum(spent.values())) * 1e3,
+                     "candidates": al.device_candidates - n0,
+                     "host_pass_ms": host_pass_against(
+                         got, al, seqs, "split batch") * 1e3})
+    rows = rows[1:]  # the first batch is a warm-up
     res = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
-    res.update(windows=n_windows, reads=rs.reads_num)
+    check(res["candidates"] == got.n_total,
+          f"split batch: {res['candidates']} vs {got.n_total} candidates")
+    res.update(windows=n_windows, reads=len(al.read_seqs))
     return res
 
 
@@ -2048,13 +2210,16 @@ def phase_mixed_anneal(device, d, iterations=30, check_iterations=10,
                        timeout=450):
     """The phase-4 world with its frag library quality-trimmed: 20 % of
     each mate file's reads cut to 60-99 bp (own generator, seed 29).  The
-    frag read sets get no native bundle, so their windows take host
-    candidates and run through the exact extension on a resident ragged
-    read set (extend_exact, never dp_rows_exact); the advice library
-    keeps the device candgen (the same exact extension on its uniform
-    read set).  --device cuda against --device cpu (equal
-    traces over the cpu run), reported against --backend bfs; then the
-    host split of one such batch (mixed_batch_split)."""
+    frag read sets get no native bundle, so their windows take the
+    candgen kernel over the max-hash index's own CSR
+    (DeviceCandGen.from_index) and the exact extension on a resident
+    ragged read set (extend_exact, never dp_rows_exact), as the advice
+    library does on its uniform read set.  --device cuda against
+    --device cpu (equal traces over the cpu run), reported against
+    --backend bfs; every batch runs a candgen query, the host pass
+    gen_candidates never; then the start scoring's batches recorded,
+    checked and split in this process (mixed_anneal_batches) and one
+    64-window batch split (mixed_batch_split)."""
     rng = np.random.default_rng(29)
     trimmed = [trim_fastq(os.path.join(d, f"f{k}.fq"),
                           os.path.join(d, f"t{k}.fq"), rng) for k in (1, 2)]
@@ -2062,13 +2227,20 @@ def phase_mixed_anneal(device, d, iterations=30, check_iterations=10,
         device, d, iterations, check_iterations, timeout,
         ("extend_exact", "candgen_runs"), frag="t",
         tag="mixed_")
-    check(res["launches"]["dp_rows_exact"] == 0,
-          f"the mixed anneal launched dp_rows_exact: {res['launches']}")
+    launches = res["launches"]
+    check(launches["dp_rows_exact"] == 0,
+          f"the mixed anneal launched dp_rows_exact: {launches}")
+    check(device.type != "cuda" or
+          launches["candgen_runs"] >= res["batches"],
+          f"a batch ran no candgen query: {res['batches']} batches, "
+          f"{launches}")
     res["trimmed_reads"] = trimmed
     print("  " + json.dumps(res), flush=True)
     if diff is not None:
         print(f"  {device}: {diff[1]}\n  bfs:  {diff[2]}", flush=True)
-    res["batch_split"] = mixed_batch_split(device, d)
+    res["in_process"], t1 = mixed_anneal_batches(device, d)
+    print("  in-process " + json.dumps(res["in_process"]), flush=True)
+    res["batch_split"] = mixed_batch_split(device, d, t1)
     print("  no-bundle batch " + json.dumps(res["batch_split"]), flush=True)
     return res
 
@@ -2255,8 +2427,8 @@ def single_end_world(device, world=(2_800_000, 300_000)):
 
 
 def phase_device_scorers(device, d, d_pb, pb_genome, anneal=None, pb=None,
-                         models=None, iterations=300, second_iterations=210,
-                         window=(100, 100), full_iterations=None,
+                         models=None, iterations=200, second_iterations=130,
+                         window=(20, 100), full_iterations=None,
                          full_second_iterations=13, full_window=(1, 10),
                          pb_iterations=400, timeout=450):
     """The JAX CLI's four device scorers through the port's CLI on
@@ -2709,11 +2881,13 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed,
     """{"kernels": [...]}: one entry per TPU kernel with the numbers of
     the phases that measured it.  K1-K4 are all served by one kernel,
     the exact two-direction extension.  Launches come from the runs of
-    the main paths (counts reset just before each): K1/K2/K3 phase 4's
-    anneal (uniform read sets, the resident loader: K1 + K2's function,
-    and K3's, the JAX package's route under GAML_SWAR_BACKWARD=0) plus
-    phase 11's paired-flag anneals, K4a/K4b the models of phase 9 plus
-    phase 10's anneal and phase 11's sharded_single_end_score, K5 phase 7
+    the main paths (counts reset just before each): K1/K2/K3 the
+    resident loader's (K1 + K2's function, and K3's, the JAX package's
+    route under GAML_SWAR_BACKWARD=0): phase 4's anneal (uniform read
+    sets), phase 10's (ragged read sets and the advice library's uniform
+    one) and phase 11's paired-flag anneals; K4a/K4b the staged
+    loader's: the models of phase 9 plus phase 11's
+    sharded_single_end_score; K5 phase 7
     plus phase 11's --pacbio-device anneal, K6 its tool, and phase 12's
     launches summed over its ranks (each entry keeps phase 11's and
     phase 12's shares as ``launches_phase11`` and ``launches_phase12``).  The K1/K2 entries carry
@@ -2741,15 +2915,16 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed,
     more = ("share", "rows", "lane_ops", "bytes", "bound_ms_stacked_count")
     res = kern["extend_exact"]
     p11, p12 = scorers["launches"], dist["launches"]
-    uniform = anneal["launches"]["extend_exact"] + p11["extend_exact"] \
-        + p12["extend_exact"]
+    p10 = mixed["launches"]["extend_exact"]
+    resident = anneal["launches"]["extend_exact"] + p10 \
+        + p11["extend_exact"] + p12["extend_exact"]
     k1k2 = dict({k: res[k] for k in keys + more},
                 staged_route_ms=res["staged_route_ms"],
-                stage_views_ms=res["stage_views_ms"], launches=uniform,
-                launches_phase11=p11["extend_exact"],
+                stage_views_ms=res["stage_views_ms"], launches=resident,
+                launches_phase10=p10, launches_phase11=p11["extend_exact"],
                 launches_phase12=p12["extend_exact"], loader="resident")
-    k4 = mixed["launches"]["extend_exact"] + models["K4a"]["launches"] \
-        + p11["extend_exact_staged"] + p12["extend_exact_staged"]
+    k4 = models["K4a"]["launches"] + p11["extend_exact_staged"] \
+        + p12["extend_exact_staged"]
 
     def exact_entry(res, launches, **extra):
         return dict({k: res[k] for k in keys + more}, launches=launches,
@@ -2762,7 +2937,7 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed,
                        staged_entry_launches=anneal["launches"][
                            "swar_cost_accept"]),
             "K3": exact_entry(
-                exact["exact_resident"], uniform,
+                exact["exact_resident"], resident, launches_phase10=p10,
                 launches_phase11=p11["extend_exact"],
                 launches_phase12=p12["extend_exact"],
                 loader="resident", read_lens=exact["exact_resident"][

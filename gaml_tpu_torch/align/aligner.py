@@ -16,16 +16,18 @@ The extension step is pluggable: the "bfs" backend is the exact host oracle
 port's torch ops on ``device`` (the CUDA kernels on a CUDA device, their
 plain versions on the CPU):
 
-- with a native bundle (uniform read lengths), candidate generation and
+- with a max-hash index, candidate generation (ops.candgen_device) and
   the exact two-direction extension run in gaml_tpu_torch.ops, one
-  batch of windows at a time; a batch whose candidate count exceeds the
-  cap is redone on the device with the cap raised to the count;
-- without one (mixed read lengths, e.g. quality-trimmed libraries),
-  candidates come from the host index window by window, and the whole
-  batch is extended on a resident ragged DeviceExtender of the read set
-  (built once, DeviceExtender.run): the batch ships its window bytes and
-  per-candidate (window, g0, r0, row, orient), and the exact extension
-  runs both directions in one launch.
+  batch of windows at a time, over a resident index and read matrix
+  built once per read set: a native bundle's for uniform read lengths,
+  else the index's own CSR over a ragged read matrix (mixed read
+  lengths, e.g. quality-trimmed libraries: DeviceCandGen.from_index); a
+  batch whose candidate count exceeds the cap is redone on the device
+  with the cap raised to the count;
+- with the trivial index (no fingerprint CSR), candidates come from the
+  host index window by window (gen_candidates), and the whole batch is
+  extended on a resident ragged DeviceExtender of the read set
+  (DeviceExtender.run): one launch of the exact extension.
 
 The device modules (and torch) load on the first device call, so the bfs
 backend runs without them.
@@ -197,6 +199,12 @@ class _ReadCache:
         return hit
 
 
+# calls of gen_candidates, the host candidate pass: the device backend
+# runs it only for the trivial index and align_seq, so a max-hash read
+# set's batches leave this at 0
+HOST_CALLS = {"gen_candidates": 0}
+
+
 def gen_candidates(index: ReadIndexMaxHash, read_seqs: Dict[int, np.ndarray],
                    seq: np.ndarray,
                    read_cache: "_ReadCache" = None) -> List[Tuple[Candidate, np.ndarray]]:
@@ -205,6 +213,7 @@ def gen_candidates(index: ReadIndexMaxHash, read_seqs: Dict[int, np.ndarray],
     affects which duplicate wins the (position, read_id) dedup."""
     from ..index.maxhash import ReadIndexMaxHash as _MH, pack_kmers
 
+    HOST_CALLS["gen_candidates"] += 1
     cands = index.get_read_cands_with_poses(seq)
     if not cands:
         return []
@@ -320,12 +329,12 @@ class SubpathAligner:
         ``paths`` — or, with ``defer``, a zero-arg closure producing it
         after the (already queued) device work completes, so callers can
         queue several read sets' batches before blocking on any result."""
-        bundle = getattr(self, "native_bundle", None)
-        if bundle is not None:
-            return self._align_subpaths_batch_native(graph, paths, bundle,
+        resc = self.ensure_device_rescorer()
+        if resc is not None:
+            return self._align_subpaths_batch_device(graph, paths, resc,
                                                      defer=defer)
-        # no native bundle (mixed read lengths, trivial index): candidates
-        # on the host per window, one device extension for the batch
+        # the trivial index: candidates on the host per window, one
+        # device extension for the batch
         rl = self.index.read_len
         out: List[AlignmentColumns] = [_EMPTY_COLUMNS_ALIGNER] * len(paths)
         seqs, offsets, keep = [], [], []
@@ -380,7 +389,7 @@ class SubpathAligner:
                 [self.read_seqs[r] for r in rids], self.device), row_of)
         return self._ragged_extender
 
-    def _align_subpaths_batch_native(self, graph, paths, bundle,
+    def _align_subpaths_batch_device(self, graph, paths, resc,
                                      defer: bool = False):
         rl = self.index.read_len
         out: List[AlignmentColumns] = [None] * len(paths)
@@ -397,7 +406,6 @@ class SubpathAligner:
             offsets.append(offset)
         if not keep:
             return (lambda: out) if defer else out
-        resc = self.ensure_device_rescorer()
         # the cap bounds one batch's candidate arrays on the device
         cap = max(4096, sum(len(s) for s in seqs) // 2)
         fetch = resc.extend(seqs, cap)
@@ -415,18 +423,36 @@ class SubpathAligner:
         return postprocess if defer else postprocess()
 
     def ensure_device_rescorer(self):
-        """The candgen + extension engine; None until the native bundle
-        exists."""
+        """The candgen + extension engine, built once: from the native
+        bundle (uniform read lengths), else, for a max-hash index, from
+        the index's CSR over the ragged read matrix of
+        ensure_ragged_extender (DeviceCandGen.from_index); None for the
+        trivial index."""
         resc = getattr(self, "_device_rescorer", None)
         if resc is None:
             bundle = getattr(self, "native_bundle", None)
-            if bundle is None:
+            if bundle is None and not isinstance(self.index,
+                                                 ReadIndexMaxHash):
                 return None
             from ..ops.rescore_device import DeviceRescorer
 
-            resc = self._device_rescorer = DeviceRescorer(
-                bundle, ext=self.ensure_device_extender(),
-                device=self.device)
+            if bundle is not None:
+                resc = DeviceRescorer(bundle,
+                                      ext=self.ensure_device_extender(),
+                                      device=self.device)
+            else:
+                from ..ops.candgen_device import DeviceCandGen
+
+                ext, row_of = self.ensure_ragged_extender()
+                n = len(self.read_seqs)
+                lens = np.zeros(len(row_of), np.int32)
+                lens[np.fromiter(self.read_seqs, np.int64, n)] = np.fromiter(
+                    map(len, self.read_seqs.values()), np.int64, n)
+                resc = DeviceRescorer(
+                    read_lens_all=lens, ext=ext, device=self.device,
+                    gen=DeviceCandGen.from_index(self.index, self.read_seqs,
+                                                 row_of, self.device))
+            self._device_rescorer = resc
         return resc
 
     def ensure_device_extender(self):

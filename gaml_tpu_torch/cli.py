@@ -34,7 +34,8 @@ every process prints the same trace.  Without a device-scorer flag every
 process runs the whole anneal.  Only process 0 writes outputs.
 
 The last line of output reports the device work: window batches,
-candidates, PacBio forward-DP cells by route, kernel launches, the
+candidates, PacBio forward-DP cells by route, kernel launches (with the
+calls of query_plain and of the host candidate pass gen_candidates), the
 anneal's wall seconds, and this process's rank and the world's size.
 """
 from __future__ import annotations
@@ -239,11 +240,13 @@ def run(args, device: str, rank: int = 0, world: int = 1) -> int:
             pacbio_cells[k] = pacbio_cells.get(k, 0) + v
     launches = {}
     if args.backend == "device" or pacbio:
+        from .align import aligner
         from .ops import candgen_cuda, candgen_device, extend_cuda, \
             forward_cuda
 
         launches = {**extend_cuda.LAUNCHES, **forward_cuda.LAUNCHES,
-                    **candgen_cuda.LAUNCHES, **candgen_device.PLAIN_CALLS}
+                    **candgen_cuda.LAUNCHES, **candgen_device.PLAIN_CALLS,
+                    **aligner.HOST_CALLS}
     print("device work: " + json.dumps({
         "device": device,
         "backend": args.backend,

@@ -19,6 +19,7 @@ drop-in used when built (same outputs, bit-for-bit).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -149,6 +150,24 @@ def maxhash_of_reads_batch(codes_2d: np.ndarray) -> np.ndarray:
         return np.zeros(codes_2d.shape[0], dtype=np.uint64)
     hashes = kmers ^ np.uint32(HASH_XOR)
     return hashes.max(axis=1).astype(np.uint64)
+
+
+def index_csr(index: Dict[int, List[int]]):
+    """A max-hash index dict (fingerprint -> read ids) as a CSR sorted by
+    fingerprint: (fingerprints int64 [n_fp], offsets int64 [n_fp + 1],
+    read ids int64 [offsets[-1]]), each list in its own order."""
+    n = len(index)
+    keys = np.fromiter(index.keys(), np.int64, n)
+    counts = np.fromiter(map(len, index.values()), np.int64, n)
+    flat = np.fromiter(itertools.chain.from_iterable(index.values()),
+                       np.int64, int(counts.sum()))
+    order = np.argsort(keys, kind="stable")
+    cnt = counts[order]
+    off = np.zeros(n + 1, np.int64)
+    np.cumsum(cnt, out=off[1:])
+    start = (np.cumsum(counts) - counts)[order]
+    rids = flat[np.repeat(start - off[:-1], cnt) + np.arange(len(flat))]
+    return keys[order], off, rids
 
 
 class ReadIndexMaxHash:

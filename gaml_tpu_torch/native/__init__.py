@@ -21,6 +21,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..index.maxhash import index_csr
 from ..ops.build import BUILD_DIR, CSRC
 
 _SRC = os.path.join(CSRC, "gaml_native.cc")
@@ -314,16 +315,9 @@ class NativeAlignBundle:
 
     def __init__(self, index_dict, read_len, codes_fwd, codes_rc,
                  seed_pos, row_of):
-        fps = np.array(sorted(index_dict.keys()), dtype=np.uint64)
-        offs = np.zeros(len(fps) + 1, dtype=np.int64)
-        rid_lists = []
-        for i, fp in enumerate(fps.tolist()):
-            lst = index_dict[fp]
-            offs[i + 1] = offs[i] + len(lst)
-            rid_lists.extend(lst)
-        self.fp_sorted = fps
-        self.fp_off = offs
-        self.fp_rids = np.array(rid_lists, dtype=np.int32)
+        fps, self.fp_off, rids = index_csr(index_dict)
+        self.fp_sorted = fps.astype(np.uint64)
+        self.fp_rids = rids.astype(np.int32)
         self.read_len = read_len
         self.codes_fwd = np.ascontiguousarray(codes_fwd)
         self.codes_rc = np.ascontiguousarray(codes_rc)

@@ -58,7 +58,8 @@ def _call(name, device, args):
 
 
 def check_batch(gen, codes, seg_base, seg_len):
-    """Shape, type and device checks of a window batch for ``gen``."""
+    """Shape, type and device checks of a window batch for ``gen`` and of
+    ``gen``'s resident arrays (a bundle's or a max-hash index's)."""
     if codes.dim() != 1 or codes.dtype != torch.uint8:
         raise ValueError(f"codes must be uint8 [g], got {codes.dtype} "
                          f"{tuple(codes.shape)}")
@@ -74,13 +75,22 @@ def check_batch(gen, codes, seg_base, seg_len):
                              f"{gen.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name in ("sf", "off", "rids", "seed2", "row_of"):
+        t = getattr(gen, name)
+        if t.dtype != torch.int64 or t.device != gen.device or \
+                not t.is_contiguous():
+            raise ValueError(f"the index's {name} must be contiguous int64 "
+                             f"on {gen.device}")
+    if gen.seed2.dim() != 2 or gen.seed2.shape[1] != 2:
+        raise ValueError(f"seed2 must be [rows, 2], got "
+                         f"{tuple(gen.seed2.shape)}")
     if gen.read_len > L_MAX:
         raise ValueError(f"read length {gen.read_len} above the kernel's "
                          f"{L_MAX}")
     if codes.shape[0] + 2 * L_MAX + 2048 >= 2 ** 31 or \
-            gen.rids.shape[0] >= 2 ** 31:
+            gen.rids.shape[0] >= 2 ** 31 or gen.row_of.shape[0] > 2 ** 32:
         raise ValueError("the kernel takes positions and CSR entries below "
-                         "2^31")
+                         "2^31 and read ids below 2^32")
 
 
 def query_kernel(gen, codes, seg_base, seg_len, cap, mark):

@@ -16,6 +16,13 @@ operations, is its plain version and the CPU route.  What both compute:
   positions, emitted in the reference order: per segment, stable by read
   id over (forward hits in window order, then reverse hits).
 
+The resident index comes from a NativeAlignBundle (``DeviceCandGen``:
+uniform read lengths) or from a max-hash index over reads of any lengths
+(``DeviceCandGen.from_index``: a quality-trimmed library, whose rows
+are the ragged extension's).  Either way the seed of a candidate is a
+per-(read, orientation) constant: the window's fingerprint k-mer is the
+read's own.
+
 Shapes follow the data: the run table and the candidate arrays are sized
 by what the batch holds, so no table can overflow (the JAX run table could
 and its retry never ended, ROADMAP C3).  Sort keys are int64 (the JAX
@@ -26,12 +33,13 @@ without candidates, and a retry with cap >= n_total succeeds.
 from __future__ import annotations
 
 import time
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..index.maxhash import HASH_XOR, K_INDEX_KMER
+from ..index.maxhash import (HASH_XOR, K_INDEX_KMER, index_csr,
+                             pack_kmers_batch)
 
 K = K_INDEX_KMER
 _POS_MASK = (1 << 32) - 1
@@ -104,24 +112,87 @@ def stage_ms(split: list) -> dict:
     return out
 
 
+def read_seeds(read_seqs: Dict[int, np.ndarray], rids: np.ndarray,
+               fps: np.ndarray, n_rows: int, rows: np.ndarray) -> np.ndarray:
+    """Seed positions int64 [n_rows, 2] of the reads ``rids`` (at rows
+    ``rows``) whose fingerprints are ``fps``: the first k-mer of the read
+    equal to its fingerprint k-mer (fps ^ HASH_XOR), and the first k-mer of
+    its reverse complement equal to that k-mer's reverse complement, i.e.
+    the last forward occurrence counted from the read's other end (the
+    rule of find_seed_in_read and _ReadCache.build_precomputes).  One
+    vectorised pass a read length; -1 where a read holds no such k-mer
+    (reads shorter than K) and on rows of no read in ``rids``."""
+    seed2 = np.full((n_rows, 2), -1, np.int64)
+    lens = np.fromiter((len(read_seqs[r]) for r in rids.tolist()), np.int64,
+                       len(rids))
+    for L in np.unique(lens[lens >= K]).tolist():
+        sel = np.nonzero(lens == L)[0]
+        kmers = pack_kmers_batch(np.stack([read_seqs[r]
+                                           for r in rids[sel].tolist()]))
+        target = (fps[sel] ^ int(HASH_XOR)).astype(np.uint32)
+        hit = kmers == target[:, None]
+        found = hit.any(axis=1)
+        seed2[rows[sel[found]], 0] = hit[found].argmax(axis=1)
+        seed2[rows[sel[found]], 1] = hit[found, ::-1].argmax(axis=1)
+    return seed2
+
+
 class DeviceCandGen:
     """Per-read-set candidate generator over the resident fingerprint
     index (sorted fingerprints, CSR offsets, read ids, seed positions,
-    rid -> row map), built from a NativeAlignBundle's arrays."""
+    rid -> row map), built from a NativeAlignBundle's arrays or, by
+    ``from_index``, from a max-hash index."""
 
     def __init__(self, bundle, device="cuda"):
+        self._place(device, bundle.read_len, np.asarray(bundle.fp_sorted),
+                    np.asarray(bundle.fp_off), np.asarray(bundle.fp_rids),
+                    np.asarray(bundle.seed_pos), np.asarray(bundle.row_of))
+
+    def _place(self, device, read_len, fp, off, rids, seed2, row_of):
+        """The resident arrays on ``device``, int64: ``sf`` the sorted
+        fingerprints with _FP_PAD after them, ``off`` the CSR offsets
+        with the last repeated, ``rids``, ``seed2`` [rows, 2] and
+        ``row_of``."""
         dev = self.device = torch.device(device)
-        self.read_len = int(bundle.read_len)
-        fp = np.asarray(bundle.fp_sorted).astype(np.int64)
-        off = np.asarray(bundle.fp_off).astype(np.int64)
+        self.read_len = int(read_len)
+        fp, off = fp.astype(np.int64), off.astype(np.int64)
         self.sf = torch.as_tensor(np.append(fp, _FP_PAD), device=dev)
         self.off = torch.as_tensor(np.append(off, off[-1]), device=dev)
-        self.rids = torch.as_tensor(
-            np.asarray(bundle.fp_rids).astype(np.int64), device=dev)
-        self.seed2 = torch.as_tensor(
-            np.asarray(bundle.seed_pos).astype(np.int64), device=dev)
-        self.row_of = torch.as_tensor(
-            np.asarray(bundle.row_of).astype(np.int64), device=dev)
+        self.rids, self.seed2, self.row_of = (
+            torch.as_tensor(np.ascontiguousarray(a, dtype=np.int64),
+                            device=dev) for a in (rids, seed2, row_of))
+
+    @classmethod
+    def from_index(cls, index, read_seqs: Dict[int, np.ndarray],
+                   row_of: np.ndarray, device="cuda") -> "DeviceCandGen":
+        """The generator of a read set of any read lengths: ``index`` a
+        ReadIndexMaxHash (its dict as the CSR, queried at its read_len),
+        ``read_seqs`` rid -> codes, ``row_of`` rid -> row of the ragged
+        extension's read matrix (-1 for none), whose rows the seeds
+        take.  Raises ValueError when an indexed read has no row, or no
+        seed where a query could emit it: reads shorter than K sit under
+        fingerprint 0 (index.maxhash.maxhash_of_reads_batch) with seed -1,
+        which only a query at read_len == K can reach (a window of two or
+        more k-mers has a maximum hash of 0 only if every k-mer is
+        HASH_XOR's, which no two consecutive k-mers can both be)."""
+        sf, off, rids = index_csr(index.index)
+        row_of = np.asarray(row_of, dtype=np.int64)
+        if len(rids) and (rids.max() >= len(row_of) or
+                          row_of[rids].min() < 0):
+            raise ValueError("an indexed read has no row in the read matrix")
+        rows = row_of[rids]
+        fps = np.repeat(sf, np.diff(off))
+        seed2 = read_seeds(read_seqs, rids, fps,
+                           int(row_of.max(initial=-1)) + 1, rows)
+        bad = (seed2[rows] < 0).any(axis=1)
+        if bad.any() and (index.read_len == K or fps[bad].any()):
+            r = int(rids[np.nonzero(bad)[0][0]])
+            raise ValueError(f"read {r} (fingerprint {int(fps[bad][0])}, "
+                             f"{len(read_seqs[r])} bp) has no seed a query "
+                             f"at read length {index.read_len} could emit")
+        gen = cls.__new__(cls)
+        gen._place(device, index.read_len, sf, off, rids, seed2, row_of)
+        return gen
 
     def upload(self, seqs: List[np.ndarray]):
         """Window batch -> (codes uint8 [g_total], every non-ACGT code as

@@ -38,16 +38,21 @@ from .score import alignment_probs, dedup_alignments, reduce_read_probs
 class DeviceRescorer:
     """Rescore engine for one read set: the resident candgen index
     (DeviceCandGen) plus the resident read codes (DeviceExtender), both
-    built from the same NativeAlignBundle as gaml_tpu's engines."""
+    built from the same NativeAlignBundle as gaml_tpu's engines, or both
+    given (``gen`` and ``ext``, e.g. a max-hash index's generator over a
+    ragged read matrix; ``read_lens_all`` then gives every read's
+    length)."""
 
-    def __init__(self, bundle, read_lens_all: np.ndarray = None,
-                 ext: DeviceExtender = None, device="cuda"):
+    def __init__(self, bundle=None, read_lens_all: np.ndarray = None,
+                 ext: DeviceExtender = None, device="cuda",
+                 gen: DeviceCandGen = None):
         self.device = torch.device(device)
-        self.gen = DeviceCandGen(bundle, self.device)
+        self.gen = gen if gen is not None else DeviceCandGen(bundle,
+                                                             self.device)
         self.ext = ext if ext is not None else DeviceExtender(
             bundle.codes_fwd, bundle.codes_rc, self.device)
-        self.read_len = int(bundle.read_len)
-        self.n_reads = int(len(bundle.row_of))
+        self.read_len = self.gen.read_len
+        self.n_reads = int(self.gen.row_of.shape[0])
         if read_lens_all is None:
             read_lens_all = np.full(self.n_reads, self.read_len, np.int32)
         self.lens = torch.as_tensor(

@@ -6,7 +6,9 @@ tests/test_torch_candgen.py holds to the native query and the JAX
 package) at tiny tiles, so that windows, runs and segments cross tile
 edges: n_total and every candidate (rid, g0, r0, orient, seg) in order.
 The ``cuda`` tests hold the kernel itself to query_plain on the same
-worlds, and count one query's launches.  No jax import, so the card
+worlds and on generators built from a max-hash index over reads of mixed
+lengths (``ragged_world``, DeviceCandGen.from_index), and count one
+query's launches.  No jax import, so the card
 tests run where jax is missing:
 
     python -m pytest --noconftest -m cuda tests/test_torch_candgen_kernel.py
@@ -18,7 +20,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from gaml_tpu_torch.core import dna
-from gaml_tpu_torch.index.maxhash import K_INDEX_KMER
+from gaml_tpu_torch.index.maxhash import K_INDEX_KMER, ReadIndexMaxHash
 from gaml_tpu_torch.ops import candgen_cuda, candgen_device
 from gaml_tpu_torch.ops.candgen_cuda import query_twin
 from gaml_tpu_torch.ops.candgen_device import DeviceCandGen, stage_ms
@@ -82,6 +84,50 @@ def world(seed, read_len=30, n_seg=5, seg_lens=(0, 200), n_rate=0.0,
     flip = rng.random(n_reads) < 0.5
     reads[flip] = dna._COMP_LUT[reads[flip]][:, ::-1]
     return reads, segs
+
+
+def ragged_world(seed, n_windows=8, max_window=600, n_rate=0.01,
+                 n_reads=240, lens=None):
+    """(reads in file order, their read ids, windows): reads of six
+    distinct lengths in 16-150 (or ``lens``) sampled from a 6 kb source
+    with 2 % substitutions, half reverse-complemented, one in twenty with
+    an N code (never indexed), read ids a permutation of the file order;
+    ``n_windows`` windows of 16-``max_window`` bp cut from the source,
+    N codes at ``n_rate``."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, 4, 6000).astype(np.uint8)
+    if lens is None:
+        lens = rng.choice(np.arange(16, 151), 6, replace=False)
+    lens = np.asarray(lens)
+    read_lens = np.concatenate([lens, rng.choice(lens, n_reads - len(lens))])
+    reads = []
+    for i, ln in enumerate(read_lens.tolist()):
+        at = int(rng.integers(0, len(src) - ln + 1))
+        r = src[at:at + ln].copy()
+        errs = rng.random(ln) < 0.02
+        r[errs] = (r[errs] + rng.integers(1, 4, int(errs.sum()))) % 4
+        if rng.random() < 0.5:
+            r = dna.revcomp(r)
+        if i % 20 == 19:
+            r[int(rng.integers(0, ln))] = dna.CODE_N
+        reads.append(r)
+    rids = rng.permutation(n_reads).tolist()
+    windows = []
+    for _ in range(n_windows):
+        ln = int(rng.integers(16, max_window + 1))
+        at = int(rng.integers(0, len(src) - ln + 1))
+        w = src[at:at + ln].copy()
+        w[rng.random(ln) < n_rate] = dna.CODE_N
+        windows.append(w)
+    return reads, rids, windows
+
+
+def ragged_rows(read_seqs):
+    """SubpathAligner.ensure_ragged_extender's rid -> row map."""
+    rids = sorted(read_seqs)
+    row_of = np.full(max(rids) + 1, -1, dtype=np.int64)
+    row_of[rids] = np.arange(len(rids))
+    return row_of
 
 
 WORLDS = {
@@ -223,6 +269,29 @@ def test_kernel_on_random_worlds_and_cap():
         if c.n_total > 1:
             kernel_against_plain(reads, segs, device, cap=c.n_total - 1)
             kernel_against_plain(reads, segs, device, cap=c.n_total)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rate", [0.0, 0.01])
+def test_kernel_matches_plain_on_an_index_built_generator(n_rate):
+    """DeviceCandGen.from_index (reads of six lengths, the ragged rows):
+    the kernel bit-equal to query_plain, with a cap overflow and retry."""
+    device = card()
+    for seed in range(6):
+        reads, rids, windows = ragged_world(seed, 64, 3000, n_rate, 600)
+        index = ReadIndexMaxHash()
+        index.add_reads_batch(reads, rids)
+        read_seqs = dict(zip(rids, reads))
+        gen = DeviceCandGen.from_index(index, read_seqs,
+                                       ragged_rows(read_seqs), device)
+        staged = gen.upload(windows)
+        got = gen.query(staged=staged)
+        torch.cuda.synchronize()
+        assert got.n_total > 0
+        assert_same(got, gen.query_plain(staged=staged))
+        over = gen.query(staged=staged, cap=got.n_total - 1)
+        assert over.overflow and over.n_total == got.n_total
+        assert_same(gen.query(staged=staged, cap=got.n_total), got)
 
 
 @pytest.mark.cuda

@@ -150,18 +150,25 @@ def test_bfs_backend_matches_jax_bfs_backend(tmp_path, monkeypatch, capsys,
 def test_mixed_length_trace_matches_jax_device_backend(tmp_path,
                                                        monkeypatch, capsys):
     """A quality-trimmed library (no native bundle): every window batch
-    is one DeviceExtender.run call on the read set's resident codes (one
-    launch of the exact extension), counted in the summary line."""
-    from gaml_tpu_torch.ops import extend_device
+    is one candgen query over the max-hash index's CSR (query_plain on
+    the CPU) and one DeviceExtender.extend call on the read set's
+    resident ragged codes (one launch of the exact extension), counted in
+    the summary line; the host candidate pass never runs."""
+    from gaml_tpu_torch.align import aligner
+    from gaml_tpu_torch.ops import candgen_device, extend_device
 
     calls = []
-    real = extend_device.DeviceExtender.run
-    monkeypatch.setattr(extend_device.DeviceExtender, "run",
-                        lambda self, *a, **kw: calls.append(len(a[4]))
+    real = extend_device.DeviceExtender.extend
+    monkeypatch.setattr(extend_device.DeviceExtender, "extend",
+                        lambda self, *a, **kw: calls.append(len(a[3]))
                         or real(self, *a, **kw))
+    # the counts are the process's: earlier tests may have added to them
+    before = {**candgen_device.PLAIN_CALLS, **aligner.HOST_CALLS}
     summary = port_against_jax(tmp_path, monkeypatch, capsys, trimmed=True)
     assert summary["batches"] == len(calls) > 0
     assert summary["candidates"] == sum(calls)
+    ran = {k: summary["launches"][k] - v for k, v in before.items()}
+    assert ran == {"query_plain": len(calls), "gen_candidates": 0}
 
 
 def test_port_process_never_imports_jax(tmp_path):

@@ -1,13 +1,17 @@
 """Read sets of mixed read lengths (quality-trimmed libraries) on the
-port: no native bundle, so a window batch is one host candidate pass and
-one DeviceExtender.run call on the read set's resident codes (one launch
-of the exact extension).  Held window by
-window against gaml_tpu's SubpathAligner(backend="device"), both read
-sets built from the same FASTQ."""
+port: no native bundle, so a window batch is one candgen query over the
+max-hash index's own CSR (DeviceCandGen.from_index; query_plain on the
+CPU, no host candidate pass) and one DeviceExtender.extend call on the
+read set's resident ragged codes (one launch of the exact extension).
+Held window by window against gaml_tpu's
+SubpathAligner(backend="device"), both read sets built from the same
+FASTQ."""
 import numpy as np
 import pytest
 
 from gaml_tpu.scoring.readset import ReadSet
+from gaml_tpu_torch.align import aligner as port_aligner
+from gaml_tpu_torch.ops import candgen_device
 from gaml_tpu_torch.ops import extend_device as port_extend
 from gaml_tpu_torch.scoring.readset import ReadSet as PortReadSet
 
@@ -56,15 +60,19 @@ def test_trimmed_read_set_matches_jax_device_aligner(tmp_path, monkeypatch):
     assert getattr(al, "native_bundle", None) is None
     port_gr = port_linear_graph(node_seqs)
     calls = []
-    real = port_extend.DeviceExtender.run
+    real = port_extend.DeviceExtender.extend
 
     def spy(self, *args, **kw):
-        calls.append(len(args[4]))  # the candidates' g0
+        calls.append(len(args[3]))  # the candidates' g0
         return real(self, *args, **kw)
 
-    monkeypatch.setattr(port_extend.DeviceExtender, "run", spy)
+    monkeypatch.setattr(port_extend.DeviceExtender, "extend", spy)
+    plain = candgen_device.PLAIN_CALLS["query_plain"]
+    host = port_aligner.HOST_CALLS["gen_candidates"]
     got = al.align_subpaths_batch(port_gr, windows)
     assert len(calls) == 1 and calls[0] > 50
+    assert candgen_device.PLAIN_CALLS["query_plain"] == plain + 1
+    assert port_aligner.HOST_CALLS["gen_candidates"] == host
     assert (al.device_batches, al.device_candidates) == (1, calls[0])
     assert sum(len(w) for w in want) > 50
     for i, (g, w) in enumerate(zip(got, want)):
