@@ -24,17 +24,20 @@ the JAX package is imported.
    port's own CPU engine (which runs the plain versions), with warm
    timings, the stage split (candgen, extension, dedup + reduction) and
    the extension against its plain version on the rescore's own
-   candidates; the candgen kernel (csrc/candgen.cu) bit-equal to the
-   native query and to its plain version (query_plain), both timed and
-   split into stages with CUDA events, the kernel launched once by the
-   rescore and query_plain never; and k = 4 assemblies (the genome each,
+   candidates; the candgen kernels (csrc/candgen.cu) bit-equal to the
+   native query and to their plain version (query_plain), also on the
+   radix route, both timed and split into stages with CUDA events, the
+   runs pass launched once by the rescore and query_plain never, the hand-written sort stage timed beside
+   torch.sort on the same keys (whose sorted keys must equal the
+   kernels'); and k = 4 assemblies (the genome each,
    bench.py's batched mode) in one rescore (seg_job, one candgen, one
    extension launch) against four single rescores, each job within
    1e-12, both timed, its candidates the kernel's = query_plain's;
 3. the same at S. aureus scale (2.8 Mb, 300k reads of 100 bp), and 200
    anneal-sized window batches cut from that genome (1-512 segments of
-   60-3000 bp, N codes in every third) through the kernel, query_plain
-   and the native query, all bit-equal;
+   60-3000 bp, N codes in every third) through the kernels (by the
+   default route and by the radix route), query_plain and the native
+   query, all bit-equal;
 4. an anneal (200 iterations) through ``python -m gaml_tpu_torch.cli
    --device cuda`` on the 2.8 Mb paired world of
    examples/aureus_like_run.py, held against a ``--device cpu`` run of
@@ -103,11 +106,14 @@ the JAX package is imported.
    world (2, 1) on phase 9's candidates.  Per flag and rank: ms a move
    beside world 1's, the host staging share, the busy share, launches.
 
-The anneals of phases 4 and 10-12 must launch the candgen kernel and
-never query_plain on the card; those of phases 4 and 10 never the host
-candidate pass either.  ``python3 chip_smoke.py --candgen-split
-[plain] [kernel]`` runs only the candgen stage split of each route on
-phase 2's and phase 3's worlds and phase 4's first 100 moves' batches.
+The anneals of phases 4 and 10-12 must launch the candgen kernels and
+never query_plain on the card (phase 4 the one-block route too); those
+of phases 4 and 10 never the host candidate pass either.  ``python3
+chip_smoke.py --candgen-split [plain] [kernel] [radix]`` runs only the
+candgen stage split of each route (radix: the kernels with the
+one-block threshold 0) on phase 2's and phase 3's worlds and phase 4's
+first 100 moves' batches, with the kernel route the sort against
+torch.sort.
 
 Kernel times are the median over warm calls of CUDA events around one
 call (the launch included).  Each kernel's bound is the larger of its
@@ -153,8 +159,9 @@ KERNELS = (  # (TPU kernel, entry name, source, the pallas_call it replaces)
 # graph (gaml_tpu/ops/candgen_device.py:91-278)
 CANDGEN = ("candgen", "gaml_tpu_torch/csrc/candgen.cu",
            "gaml_tpu/ops/candgen_device.py:91")
-CANDGEN_KERNELS = ("candgen_runs_kernel", "candgen_scan_kernel",
-                   "candgen_expand_kernel", "candgen_finish_kernel")
+CANDGEN_KERNELS = ("candgen_runs_kernel", "candgen_block_kernel",
+                   "candgen_expand_kernel", "candgen_hist_kernel",
+                   "candgen_scatter_kernel")
 PB_MATCH, PB_MISMATCH = 0.85, 0.0375  # config mismatch_prob=0.0375
 # peaks of one NVIDIA H100 SXM for the bounds: HBM bytes/s; the SM clock;
 # 16-bit lane operations/s of the packed integer band (132 SMs x 64 int32
@@ -298,12 +305,19 @@ def phase_card():
         check(usage[entry].get("spill_stores", 0) == 0,
               f"{entry} spills: {usage[entry]}")
         print(f"  {entry}: " + json.dumps(usage[entry]), flush=True)
-    for frag in CANDGEN_KERNELS:
+    for frag in CANDGEN_KERNELS:  # each over its template instances
         names = [k for k in sass if frag in k]
-        check(len(names) == 1, f"{frag}: kernels {names} in the SASS")
         reg = ptxas_usage(build.build_info["log"], frag)
-        usage[frag] = dict(reg[0] if reg else {}, sass=sass[names[0]]["sass"])
-        check(usage[frag].get("spill_stores", 0) == 0,
+        check(names and reg, f"{frag}: kernels {names} in the SASS, "
+              f"{len(reg)} in the compiler's output")
+        usage[frag] = {
+            "instances": len(names),
+            "registers": max(r.get("registers", 0) for r in reg),
+            "spill_stores": sum(r.get("spill_stores", 0) for r in reg),
+            "spill_loads": sum(r.get("spill_loads", 0) for r in reg),
+            "sass": sum(sass[k]["sass"] for k in names)}
+        check(usage[frag]["spill_stores"] == 0 and
+              usage[frag]["spill_loads"] == 0,
               f"{frag} spills: {usage[frag]}")
         print(f"  {frag}: " + json.dumps(usage[frag]), flush=True)
     return usage
@@ -787,33 +801,122 @@ def candgen_bound(gen, g, c):
 
 
 def candgen_against_plain(device, gen, seqs, reps):
-    """The candgen kernel (DeviceCandGen.query) against query_plain on one
-    uploaded batch: bit-equal (max_abs_err 0), both timed from the
+    """The candgen kernels (DeviceCandGen.query) against query_plain on
+    one uploaded batch: bit-equal (max_abs_err 0), both timed from the
     uploaded codes (CUDA events around a call that ends in its host
-    synchronisation), the bound, and each route's stage split."""
+    synchronisation), the bound, each route's stage split, one query's
+    launches by kernel, and the sort stage against torch.sort."""
     staged = gen.upload(seqs)
-    got = gen.query(staged=staged)
-    same_candidates(got, gen.query_plain(staged=staged), "candgen")
+    want = gen.query_plain(staged=staged)
+    got, launches = launches_of(lambda: gen.query(staged=staged))
+    same_candidates(got, want, "candgen")
+    same_candidates(forced_query(gen, staged, one_block_max=0), want,
+                    "candgen, radix route")
     res = {"candidates": got.n_total, "max_abs_err": 0,
            "ms": timer(device, lambda: gen.query(staged=staged), reps),
            "plain_ms": timer(device, lambda: gen.query_plain(staged=staged),
-                             reps)}
+                             reps), "launches_of_a_query": launches}
     res.update(candgen_bound(gen, staged[0].shape[0], got))
     res["share"] = res["bound_ms"] / res["ms"]
     res["split"] = {route: candgen_split(device, [(gen, seqs, None)],
                                          route, reps)
                     for route in ("kernel", "plain")}
+    res["sort"] = sort_against_torch(device, gen, staged, got, reps)
+    return res
+
+
+def launches_of(fn):
+    """(fn(), the candgen kernels' launches it made, by kernel)."""
+    from gaml_tpu_torch.ops import candgen_cuda
+
+    before = dict(candgen_cuda.LAUNCHES)
+    out = fn()
+    return out, {k: v - before[k] for k, v in candgen_cuda.LAUNCHES.items()}
+
+
+def forced_query(gen, staged, split=None, **route):
+    """candgen_cuda.query_kernel on an uploaded batch with ``route``
+    (one_block_max) in place of the default."""
+    from gaml_tpu_torch.ops import candgen_cuda
+    from gaml_tpu_torch.ops.candgen_device import stage_marker
+
+    return candgen_cuda.query_kernel(
+        gen, *staged, None, stage_marker(split, gen.device), **route)
+
+
+def sort_against_torch(device, gen, staged, got, reps):
+    """The hand-written sort against torch.sort(stable=True) on the same
+    keys: on the radix route, the stage after the sync (CUDA events from
+    the sync to the last pass's end, the host's launches included, median
+    of ``reps``), the sort's device time (its histogram and scatter
+    kernels, profiler, mean of ``reps``; the last pass writes the
+    outputs), the expansion's, and device ops a query; beside torch.sort
+    of the same compact keys as int64 (``got``'s segment << rid_bits |
+    read id, in a seeded random order: a radix sort's cost does not
+    depend on the order; CUDA events, and its kernels' device time),
+    whose sorted keys must equal ``got``'s; where the candidates fit one
+    block, that route's stage after the sync, its kernel's device time
+    and device ops."""
+    import torch
+
+    from gaml_tpu_torch.ops import candgen_cuda
+    from gaml_tpu_torch.ops.candgen_device import stage_ms
+
+    def stage(name, **route):
+        split = []
+        forced_query(gen, staged, split, **route)
+        return stage_ms(split)[name]
+
+    res = {"candidates": got.n_total}
+    if not got.n_total:
+        return res
+    stage("sort", one_block_max=0)
+    res["after_sync_ms"] = float(np.median(
+        [stage("sort", one_block_max=0) for _ in range(reps)]))
+    ops, ms = device_profile(device, lambda: forced_query(
+        gen, staged, one_block_max=0), reps)
+    res["sort_device_ms"] = ms.get("candgen_hist_kernel", 0.0) \
+        + ms.get("candgen_scatter_kernel", 0.0)
+    res["expand_device_ms"] = ms.get("candgen_expand_kernel", 0.0)
+    res["runs_device_ms"] = ms.get("candgen_runs_kernel", 0.0)
+    res["radix_device_ops"] = ops
+    seg_bits, rid_bits = candgen_cuda.key_bits(staged[2].shape[0],
+                                                gen.row_of.shape[0])
+    sorted_key = (got.seg << rid_bits) | got.rid
+    rng = torch.Generator(device=device).manual_seed(got.n_total)
+    key = sorted_key[torch.randperm(got.n_total, device=device,
+                                    generator=rng)]
+    check(torch.equal(torch.sort(key, stable=True).values, sorted_key),
+          "the kernels' sorted keys differ from torch.sort's")
+    res["torch_sort_ms"] = timer(device, lambda: torch.sort(key, stable=True),
+                                 reps)
+    res["torch_sort_device_ops"], ms = device_profile(
+        device, lambda: torch.sort(key, stable=True), reps)
+    res["torch_sort_device_ms"] = sum(ms.values())
+    if got.n_total <= candgen_cuda.BLOCK_MAX and seg_bits + rid_bits <= 32:
+        stage("block")
+        res["block_ms"] = float(np.median([stage("block")
+                                           for _ in range(reps)]))
+        res["block_device_ops"], ms = device_profile(
+            device, lambda: forced_query(gen, staged), reps)
+        res["block_device_ms"] = ms.get("candgen_block_kernel", 0.0)
+        res["block_runs_device_ms"] = ms.get("candgen_runs_kernel", 0.0)
     return res
 
 
 def candgen_fuzz(gen, bundle, genome, n, seed=17):
     """``n`` anneal-sized window batches cut from ``genome``: 1-512
     segments of 60-3000 bp each, N codes in every third batch; on each
-    the kernel bit-equal to query_plain and to the native query."""
+    the kernels bit-equal to query_plain and to the native query, by the
+    default route and by the radix route; the default route's queries
+    counted by route, and on the first batch of each route the sort
+    against torch.sort (device ops of both routes)."""
     from gaml_tpu_torch.native import query_windows_batch
 
     rng = np.random.default_rng(seed)
     t0, cands = time.perf_counter(), 0
+    routes = {"block": 0, "radix": 0, "none": 0}
+    sorts = {}
     for b in range(n):
         k = int(rng.integers(1, 513))
         lens = rng.integers(60, 3001, k)
@@ -823,61 +926,127 @@ def candgen_fuzz(gen, bundle, genome, n, seed=17):
             for x in segs:
                 x[rng.random(len(x)) < 0.002] = 4
         staged = gen.upload(segs)
-        got = gen.query(staged=staged)
-        same_candidates(got, gen.query_plain(staged=staged),
-                        f"fuzz batch {b}")
+        got, launches = launches_of(lambda: gen.query(staged=staged))
+        want = gen.query_plain(staged=staged)
+        same_candidates(got, want, f"fuzz batch {b}")
+        same_candidates(forced_query(gen, staged, one_block_max=0), want,
+                        f"fuzz batch {b}, radix route")
+        route = "block" if launches["candgen_block"] else \
+            "radix" if launches["candgen_expand"] else "none"
+        routes[route] += 1
+        if route != "none" and routes[route] == 1:
+            sorts[route] = sort_against_torch(gen.device, gen, staged, got, 5)
         for i, (x, y) in enumerate(zip(native_layout(got, k),
                                        query_windows_batch(bundle, segs))):
             for name, u, v in zip(("rid", "g0", "r0", "orient"), x, y):
                 check(np.array_equal(u, v), f"fuzz batch {b} window {i}: "
                       f"{name} differs from native")
         cands += got.n_total
-    return {"batches": n, "candidates": cands,
-            "s": time.perf_counter() - t0}
+    return {"batches": n, "candidates": cands, "routes": routes,
+            "sort": sorts, "s": time.perf_counter() - t0}
 
 
-def device_ops(device, fn):
-    """Kernels and copies the card ran for fn() (torch.profiler), or None
+def device_profile(device, fn, reps=1):
+    """(kernels and copies the card ran for one fn() call, {kernel: device
+    ms a call}) over ``reps`` calls under torch.profiler; the candgen
+    kernels by name, "memset", "memcpy", the rest as "other"; (None, {})
     where the profiler saw no device activity."""
     import torch
 
     if device.type != "cuda":
-        return None
+        return None, {}
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         sync(device)
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
-    return n or None
+    n, ms = 0, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n += 1
+        m = re.search(r"candgen_\w+?_kernel", e.name)
+        name = m.group(0) if m else "memset" if "Memset" in e.name else \
+            "memcpy" if "Memcpy" in e.name else "other"
+        ms[name] = ms.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return (n / reps or None), ms
 
 
 def candgen_split(device, batches, route, reps):
     """The stage split of one candgen route over window batches
     ``batches`` [(DeviceCandGen, seqs, cap)]: {stage: ms per query}, each
     stage's CUDA-event span (ops.candgen_device.stage_ms) summed over the
-    batches and divided by their count, the median over ``reps`` passes
-    after a warm one; "total_ms" their sum, "device_ops" the kernels and
-    copies of the first batch's query (profiler).  ``route``: "kernel"
-    (DeviceCandGen.query) or "plain" (query_plain)."""
-    from gaml_tpu_torch.ops.candgen_device import stage_ms
+    batches and divided by their count (a stage a route skips counts 0),
+    the median over ``reps`` passes after a warm one; "total_ms" their
+    sum, "device_ops" the kernels and copies a query and "device_ms" each
+    kernel's device time a query (profiler, one more pass over the
+    batches).  ``route``: "kernel" (DeviceCandGen.query), "radix" (its
+    kernels with the one-block threshold 0) or "plain" (query_plain)."""
+    from gaml_tpu_torch.ops.candgen_device import stage_marker, stage_ms
+
+    def query(gen, seqs, cap, split=None):
+        if route == "plain":
+            return gen.query_plain(seqs, cap, split=split)
+        if route == "kernel":
+            return gen.query(seqs, cap, split=split)
+        mark = stage_marker(split, gen.device)
+        staged = gen.upload(seqs)
+        mark("upload")
+        from gaml_tpu_torch.ops.candgen_cuda import query_kernel
+
+        return query_kernel(gen, *staged, cap, mark, one_block_max=0)
 
     def one_pass():
         split = []
         for gen, seqs, cap in batches:
-            (gen.query if route == "kernel" else gen.query_plain)(
-                seqs, cap, split=split)
+            query(gen, seqs, cap, split)
         return stage_ms(split)
 
     one_pass()
     passes = [one_pass() for _ in range(reps)]
-    res = {k: float(np.median([p[k] for p in passes])) / len(batches)
-           for k in passes[0]}
+    stages = {k: None for p in passes for k in p}
+    res = {k: float(np.median([p.get(k, 0.0) for p in passes]))
+           / len(batches) for k in stages}
     res["total_ms"] = sum(res.values())
-    gen, seqs, cap = batches[0]
-    res["device_ops"] = device_ops(device, lambda: (
-        gen.query if route == "kernel" else gen.query_plain)(seqs, cap))
+    ops, ms = device_profile(device, lambda: [
+        query(gen, seqs, cap) for gen, seqs, cap in batches])
+    res["device_ops"] = ops and ops / len(batches)
+    res["device_ms"] = {k: v / len(batches) for k, v in ms.items()}
     return res
+
+
+def route_sweep(device, gen, genome, reps=20, seed=5):
+    """The one-block route against the radix route on batches of k windows
+    of 3000 bp cut from ``genome`` (k from 4 to 60: about 1k to 16k
+    candidates at the aureus world's density): for each, its candidates,
+    each route's ms from the uploaded codes (CUDA events around a call
+    that ends in its host synchronisation and launches the rest, the
+    median of ``reps``) and the device ms of its candgen kernels
+    (profiler), both routes bit-equal to query_plain.  The one-block
+    threshold is the largest count where it is the faster route."""
+    from gaml_tpu_torch.ops import candgen_cuda
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in (4, 12, 24, 36, 48, 60):
+        starts = rng.integers(0, len(genome) - 3000, k)
+        staged = gen.upload([genome[a:a + 3000].copy() for a in starts])
+        want = gen.query_plain(staged=staged)
+        row = {"windows": k, "candidates": want.n_total}
+        routes = {"radix": dict(one_block_max=0)}
+        if want.n_total <= candgen_cuda.BLOCK_MAX:
+            routes["block"] = dict(one_block_max=candgen_cuda.BLOCK_MAX)
+        for name, route in routes.items():
+            same_candidates(forced_query(gen, staged, **route), want,
+                            f"{k} windows, {name} route")
+            row[name + "_ms"] = timer(device, lambda: forced_query(
+                gen, staged, **route), reps)
+            _ops, ms = device_profile(device, lambda: forced_query(
+                gen, staged, **route), reps)
+            row[name + "_device_ms"] = sum(
+                v for key, v in ms.items() if key.startswith("candgen"))
+        out.append(row)
+    return out
 
 
 def anneal_batches(device, d, iterations=100):
@@ -904,7 +1073,10 @@ def anneal_batches(device, d, iterations=100):
 
 def candgen_split_main(routes):
     """``--candgen-split [routes]``: each route's stage split on the bench
-    world, the aureus world and phase 4's anneal batches; one JSON line."""
+    world, the aureus world and phase 4's anneal batches, and with the
+    kernel route the sort against torch.sort (sort_against_torch; on the
+    anneal's first 20 batches, their mean) and the two sort routes on
+    batches of 1k-16k candidates (route_sweep); one JSON line."""
     import torch
 
     from gaml_tpu_torch.ops.candgen_device import DeviceCandGen
@@ -925,6 +1097,12 @@ def candgen_split_main(routes):
         for route in routes:
             out[f"{tag}.{route}"] = candgen_split(
                 device, [(gen, [genome], None)], route, 10)
+        if "kernel" in routes:
+            staged = gen.upload([genome])
+            out[tag + ".sort"] = sort_against_torch(
+                device, gen, staged, gen.query(staged=staged), 10)
+            if tag == "aureus":
+                out["route_sweep"] = route_sweep(device, gen, genome)
         print(json.dumps({k: v for k, v in out.items()
                           if k.startswith(tag)}), flush=True)
     with tempfile.TemporaryDirectory(prefix="gaml_split_") as d:
@@ -939,6 +1117,15 @@ def candgen_split_main(routes):
             [g.query_plain(s, c).n_total for g, s, c in batches]))
         for route in routes:
             out["anneal." + route] = candgen_split(device, batches, route, 3)
+        if "kernel" in routes:
+            sorts = [sort_against_torch(device, g, st, g.query(staged=st), 3)
+                     for g, s, _c in batches[:20]
+                     for st in [g.upload(s)]]
+            sorts = [x for x in sorts if x["candidates"]]
+            out["anneal.sort"] = {k: float(np.mean([x[k] for x in sorts]))
+                                  for k in sorts[0]
+                                  if all(x.get(k) is not None
+                                         for x in sorts)}
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1128,7 +1315,7 @@ def phase_anneal(device, d, world, iterations=200, check_iterations=40,
     genome length, node count and seconds to write)."""
     res, diff, dev_tr = anneal_against_cpu_and_bfs(
         device, d, iterations, check_iterations, timeout,
-        ("extend_exact", "candgen_runs"))
+        ("extend_exact", "candgen_runs", "candgen_block"))
     res = dict(zip(("genome", "nodes", "world_s"), world), **res)
     print("  " + json.dumps(res), flush=True)
     if diff is not None:
@@ -2910,7 +3097,9 @@ def kernels_line(card, kern, anneal, fwd, pb, exact, models, mixed,
     phase 3's numbers beside it; its launches are its queries (runs-pass
     launches) on the main paths: phases 2-3's rescores and jobs, the
     anneals of phases 4 and 10, phase 11's and phase 12's; no PyTorch
-    call computes a max-hash window query, so library_ms is null."""
+    call computes a max-hash window query, so library_ms is null, and
+    its sort stage stands beside torch.sort on the same keys under
+    "sort"."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     more = ("share", "rows", "lane_ops", "bytes", "bound_ms_stacked_count")
     res = kern["extend_exact"]
@@ -3000,15 +3189,21 @@ def candgen_entry(card, cg, cg3, runs):
     main = dict(zip(("phase_4", "phase_10", "phase_11", "phase_12"),
                     (r["candgen_runs"] for r in runs)),
                 phases_2_3=cg["launches"] + cg3["launches"])
+    by_kernel = {k: runs[0].get(k, 0) + runs[1].get(k, 0)
+                 for k in ("candgen_runs", "candgen_block", "candgen_expand",
+                           "candgen_hist", "candgen_scatter")}
     return dict(
         {k: cg[k] for k in keys}, name=CANDGEN[0], tpu_kernel=None,
         route="cuda", source=CANDGEN[1], replaces=CANDGEN[2],
         launches=sum(main.values()), library_ms=None, launches_by_phase=main,
+        launches_by_kernel_phases_4_10=by_kernel,
         query_plain_calls_on_main_paths=sum(r["query_plain"] for r in runs),
         world=f"400 kb, {cg['candidates']} candidates", share=cg["share"],
         int32_ops=cg["int32_ops"], bytes=cg["bytes"], runs=cg["runs"],
-        split=cg["split"],
-        aureus={k: cg3[k] for k in keys + ("share", "candidates", "split")},
+        split=cg["split"], sort=cg["sort"],
+        launches_of_a_query=cg["launches_of_a_query"],
+        aureus={k: cg3[k] for k in keys + (
+            "share", "candidates", "split", "sort", "launches_of_a_query")},
         fuzz=cg3["fuzz"], compiled={k: card.get(k) for k in CANDGEN_KERNELS})
 
 

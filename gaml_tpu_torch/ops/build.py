@@ -117,18 +117,19 @@ def load():
                                             p, i, i, ctypes.c_float,
                                             ctypes.c_float, p, p]
         lib.gaml_banded_forward.restype = i
-        lib.gaml_candgen_tile.argtypes = []
-        lib.gaml_candgen_tile.restype = i
-        lib.gaml_candgen_runs.argtypes = [p, p, p, i, i, i, p, i, p, i, p, p,
-                                          p, p]
+        for name in ("tile", "sort_tile", "block_max"):
+            getattr(lib, "gaml_candgen_" + name).argtypes = []
+            getattr(lib, "gaml_candgen_" + name).restype = i
+        ll = ctypes.c_longlong
+        lib.gaml_candgen_ws_words.argtypes = [i]
+        lib.gaml_candgen_ws_words.restype = ll
+        lib.gaml_candgen_scratch_bytes.argtypes = [i, i]
+        lib.gaml_candgen_scratch_bytes.restype = ll
+        lib.gaml_candgen_runs.argtypes = [p, p, p, i, i, i, p, p, p, i, p, p,
+                                          p]
         lib.gaml_candgen_runs.restype = i
-        lib.gaml_candgen_scan.argtypes = [p, i, p, p, p]
-        lib.gaml_candgen_scan.restype = i
-        lib.gaml_candgen_expand.argtypes = [p, p, p, p, i, p, p, p]
-        lib.gaml_candgen_expand.restype = i
-        lib.gaml_candgen_finish.argtypes = [p, p, p, p, p,
-                                            ctypes.c_longlong] + [p] * 6
-        lib.gaml_candgen_finish.restype = i
+        lib.gaml_candgen_sort.argtypes = [p, i, p, p, p] + [i] * 4 + [p] * 3
+        lib.gaml_candgen_sort.restype = i
         build_info["path"] = so
         _lib = lib
         return lib

@@ -2,10 +2,11 @@
 
 Port of gaml_tpu/ops/candgen_device.py, same semantics (all bit-exact
 against the native C++ query, tests/test_torch_candgen.py).  On a card
-``DeviceCandGen.query`` runs the hand-written kernel of csrc/candgen.cu
-(ops/candgen_cuda.py: four launches, one torch sort, one host
-synchronisation); ``query_plain``, the same query as a chain of torch
-operations, is its plain version and the CPU route.  What both compute:
+``DeviceCandGen.query`` runs the hand-written kernels of csrc/candgen.cu
+(ops/candgen_cuda.py: the runs pass, one host synchronisation, then one
+block or the radix sort's passes); ``query_plain``, the same query as a
+chain of torch operations, is its plain version and the CPU route.  What
+both compute:
 
 - GetMinHashWithPoses (graph.cc:1289-1323): slide a read-length window
   over each segment, take the max k-mer hash per window with the first
@@ -40,6 +41,7 @@ import torch
 
 from ..index.maxhash import (HASH_XOR, K_INDEX_KMER, index_csr,
                              pack_kmers_batch)
+from .candgen_cuda import fp_buckets
 
 K = K_INDEX_KMER
 _POS_MASK = (1 << 32) - 1
@@ -76,7 +78,7 @@ def _shift_left(a: torch.Tensor, sh: int, fill: int) -> torch.Tensor:
 PLAIN_CALLS = {"query_plain": 0}
 
 
-def _marker(split: Optional[list], device: torch.device):
+def stage_marker(split: Optional[list], device: torch.device):
     """mark(stage): appends (stage, a CUDA event recorded now on the
     current stream, or the host clock on the CPU) to ``split``; a no-op
     when ``split`` is None.  ``stage_ms`` reads the list."""
@@ -152,10 +154,12 @@ class DeviceCandGen:
         """The resident arrays on ``device``, int64: ``sf`` the sorted
         fingerprints with _FP_PAD after them, ``off`` the CSR offsets
         with the last repeated, ``rids``, ``seed2`` [rows, 2] and
-        ``row_of``."""
+        ``row_of``; and the kernel's lookup table ``bucket`` (int32,
+        candgen_cuda.fp_buckets)."""
         dev = self.device = torch.device(device)
         self.read_len = int(read_len)
         fp, off = fp.astype(np.int64), off.astype(np.int64)
+        self.bucket = torch.as_tensor(fp_buckets(fp), device=dev)
         self.sf = torch.as_tensor(np.append(fp, _FP_PAD), device=dev)
         self.off = torch.as_tensor(np.append(off, off[-1]), device=dev)
         self.rids, self.seed2, self.row_of = (
@@ -225,7 +229,7 @@ class DeviceCandGen:
               staged=None, split: Optional[list] = None) -> Candidates:
         """Candidates of a window batch (``cap`` None: unbounded);
         ``staged``: an ``upload`` result to use instead of ``seqs``.  On a
-        CUDA device the hand-written kernel (ops.candgen_cuda, one host
+        CUDA device the hand-written kernels (ops.candgen_cuda, one host
         synchronisation), on the CPU ``query_plain``.  ``split``: a list
         that receives (stage, mark) at the end of each stage (a CUDA event
         on the card, a host clock reading on the CPU)."""
@@ -233,7 +237,7 @@ class DeviceCandGen:
             return self.query_plain(seqs, cap, staged, split)
         from .candgen_cuda import query_kernel
 
-        mark = _marker(split, self.device)
+        mark = stage_marker(split, self.device)
         batch = staged if staged is not None else self.upload(seqs)
         mark("upload")
         return query_kernel(self, *batch, cap, mark)
@@ -251,7 +255,7 @@ class DeviceCandGen:
         version (the CPU route, and the card's yardstick).  Three host
         synchronisations on the card (two ``nonzero``, the count)."""
         PLAIN_CALLS["query_plain"] += 1
-        mark = _marker(split, self.device)
+        mark = stage_marker(split, self.device)
         codes_u8, seg_base, seg_len = staged if staged is not None else \
             self.upload(seqs)
         mark("upload")

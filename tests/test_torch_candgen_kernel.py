@@ -1,15 +1,19 @@
-"""The candidate generation kernel (csrc/candgen.cu, ops/candgen_cuda.py).
+"""The candidate generation kernels (csrc/candgen.cu, ops/candgen_cuda.py).
 
-On the CPU the kernel's tiled algorithm runs as its numpy twin
+On the CPU the kernels' algorithm runs as its numpy twin
 (``query_twin``), held bit-equal to ``DeviceCandGen.query_plain`` (which
 tests/test_torch_candgen.py holds to the native query and the JAX
-package) at tiny tiles, so that windows, runs and segments cross tile
-edges: n_total and every candidate (rid, g0, r0, orient, seg) in order.
-The ``cuda`` tests hold the kernel itself to query_plain on the same
-worlds and on generators built from a max-hash index over reads of mixed
-lengths (``ragged_world``, DeviceCandGen.from_index), and count one
-query's launches.  No jax import, so the card
-tests run where jax is missing:
+package) at tiny tiles, so that windows, runs, segments and sort tiles
+cross tile edges: n_total and every candidate (rid, g0, r0, orient, seg)
+in order, on both sort routes (one block; the multi-block radix sort),
+at the kernels' 8-bit digits and at other widths; its radix passes
+(``radix_order``) are held to a stable argsort.  The ``cuda`` tests hold the kernels themselves to
+query_plain on the same worlds, on worlds whose candidates straddle the
+one-block threshold or pass 2^16, on the 64-bit key route and on
+generators built from a max-hash index over reads of mixed lengths
+(``ragged_world``, DeviceCandGen.from_index), and count one query's
+launches on each route.  No jax import, so the card tests run where jax
+is missing:
 
     python -m pytest --noconftest -m cuda tests/test_torch_candgen_kernel.py
 """
@@ -152,20 +156,59 @@ def assert_same(got, want):
                                       err_msg=name)
 
 
-def twin_against_plain(reads, segs, tile, cap=None):
+def twin_against_plain(reads, segs, tile, cap=None, **route):
+    """query_twin against query_plain at ``tile`` window starts, with
+    tile // 2 + 1 threads of the window max (chunks of several starts
+    that cross its blocks), sort tiles of 256 candidates in warps of 64,
+    and ``route`` (one_block_max, digit_bits)."""
     gen = DeviceCandGen(make_bundle(reads), "cpu")
     staged = gen.upload(segs)
     want = gen.query_plain(cap=cap, staged=staged)
-    assert_same(query_twin(gen, *staged, cap=cap, tile=tile), want)
+    assert_same(query_twin(gen, *staged, cap=cap, tile=tile,
+                           threads=tile // 2 + 1, sort_tile=256,
+                           warp_items=64, **route), want)
     return want
 
 
 @pytest.mark.parametrize("tile", TILES)
 @pytest.mark.parametrize("name", sorted(WORLDS))
 def test_twin_matches_plain(name, tile):
+    """The one-block route (the threshold large)."""
     reads, segs = world(11, **WORLDS[name])
-    want = twin_against_plain(reads, segs, tile)
+    want = twin_against_plain(reads, segs, tile, one_block_max=1 << 30)
     assert (want.n_total == 0) == (name == "zero_hits")
+
+
+@pytest.mark.parametrize("digit_bits", (8, 11))
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("name", sorted(WORLDS))
+def test_twin_multi_block_route_matches_plain(name, tile, digit_bits):
+    """The multi-block radix route (threshold 0) at the kernels' 8-bit
+    digits and at 11 bits."""
+    reads, segs = world(11, **WORLDS[name])
+    twin_against_plain(reads, segs, tile, one_block_max=0,
+                       digit_bits=digit_bits)
+
+
+@pytest.mark.parametrize("wide", (False, True))
+@pytest.mark.parametrize("digit_bits", range(1, 12))
+def test_radix_twin_matches_stable_argsort(digit_bits, wide):
+    """radix_order (the kernels' LSD passes: per-tile counts, the offsets
+    of each (tile, digit), warps ranking rounds of 32 lanes) is the
+    stable argsort, on keys with many duplicates, of 40 bits (``wide``:
+    the 64-bit key route) or 19: sort tiles of 256 in warps of 64, and
+    the one-block layout (one tile, 32 warps)."""
+    rng = np.random.default_rng(digit_bits)
+    n = 3001
+    hi_bits, bits = (37, 40) if wide else (16, 19)
+    key = (rng.integers(0, 8, n) << hi_bits) | rng.integers(0, 40, n)
+    key[rng.random(n) < 0.1] = (1 << bits) - 1
+    want = np.argsort(key, kind="stable")
+    np.testing.assert_array_equal(
+        candgen_cuda.radix_order(key, bits, digit_bits, 256, 64), want)
+    per_warp = -(-n // (32 * 32)) * 32
+    np.testing.assert_array_equal(
+        candgen_cuda.radix_order(key, bits, digit_bits, n, per_warp), want)
 
 
 @pytest.mark.parametrize("tile", TILES)
@@ -185,12 +228,16 @@ def test_twin_cap_overflow_and_retry(tile):
                                                                40)),
        n_seg=st.integers(1, 300), max_len=st.integers(1, 120),
        n_rate=st.sampled_from((0.0, 0.003, 0.05)), tandem=st.booleans(),
-       foreign=st.booleans(), tile=st.sampled_from(TILES))
+       foreign=st.booleans(), tile=st.sampled_from(TILES),
+       one_block_max=st.sampled_from((0, 1 << 30)),
+       digit_bits=st.sampled_from((8, 11)))
 def test_twin_matches_plain_on_random_worlds(seed, read_len, n_seg, max_len,
-                                             n_rate, tandem, foreign, tile):
+                                             n_rate, tandem, foreign, tile,
+                                             one_block_max, digit_bits):
     reads, segs = world(seed, read_len, n_seg, (0, max_len), n_rate, tandem,
                         foreign, n_reads=120)
-    twin_against_plain(reads, segs, tile)
+    twin_against_plain(reads, segs, tile, one_block_max=one_block_max,
+                       digit_bits=digit_bits)
 
 
 def test_cpu_query_runs_plain_and_splits():
@@ -294,18 +341,97 @@ def test_kernel_matches_plain_on_an_index_built_generator(n_rate):
         assert_same(gen.query(staged=staged, cap=got.n_total), got)
 
 
+def forced(gen, staged, **route):
+    """query_kernel on ``staged`` with ``route`` (one_block_max) in place
+    of the default."""
+    return candgen_cuda.query_kernel(gen, *staged, None, lambda _s: None,
+                                     **route)
+
+
+@pytest.mark.cuda
+def test_kernel_on_both_sides_of_the_one_block_threshold():
+    """Worlds of the first k of 40 segments (about 570 candidates each),
+    k chosen from BLOCK_MAX so that two worlds fall at or below it and two
+    above; each bit-equal to query_plain by default, at a threshold of
+    n_total (the one-block route) and n_total - 1 (the radix route)."""
+    device = card()
+    reads, all_segs = world(4, read_len=100, n_seg=40, seg_lens=(3000, 3000),
+                            n_reads=1000)
+    gen = DeviceCandGen(make_bundle(reads), device)
+    per_seg = torch.bincount(gen.query_plain(all_segs).seg.cpu(),
+                             minlength=len(all_segs))
+    cum = torch.cumsum(per_seg, 0).tolist()
+    assert cum[-1] > candgen_cuda.BLOCK_MAX + 2 * max(per_seg.tolist())
+    k = sum(c <= candgen_cuda.BLOCK_MAX for c in cum)  # cum[k - 1] <= it
+    sides = set()
+    for segs in (all_segs[:k - 1], all_segs[:k], all_segs[:k + 1],
+                 all_segs[:k + 2]):
+        got = kernel_against_plain(reads, segs, device)
+        n = got.n_total
+        sides.add(n <= candgen_cuda.BLOCK_MAX)
+        staged = gen.upload(segs)
+        for route in (dict(one_block_max=n), dict(one_block_max=n - 1)):
+            assert_same(forced(gen, staged, **route), got)
+    assert sides == {True, False}
+
+
+@pytest.mark.cuda
+def test_kernel_above_two_to_the_sixteen_candidates():
+    device = card()
+    reads, segs = world(4, read_len=100, n_seg=120, seg_lens=(3000, 3000),
+                        n_reads=1000)
+    gen = DeviceCandGen(make_bundle(reads), device)
+    staged = gen.upload(segs)
+    want = gen.query_plain(staged=staged)
+    assert want.n_total > 1 << 16
+    assert_same(forced(gen, staged), want)
+
+
+@pytest.mark.cuda
+def test_kernel_on_the_64_bit_key_route():
+    """A row_of of 2^20 rows and 2^13 segments: 33 key bits, so 64-bit
+    keys on the radix route, whatever the threshold."""
+    device = card()
+    reads, segs = world(4, read_len=40, n_seg=1 << 13, seg_lens=(60, 200),
+                        n_reads=1000)
+    gen = DeviceCandGen(make_bundle(reads), device)
+    gen.row_of = torch.cat([gen.row_of, gen.row_of.new_zeros(
+        (1 << 20) - gen.row_of.shape[0])])
+    assert sum(candgen_cuda.key_bits(len(segs), 1 << 20)) == 33
+    staged = gen.upload(segs)
+    want = gen.query_plain(staged=staged)
+    for cap in (None, want.n_total - 1):
+        got = candgen_cuda.query_kernel(gen, *staged, cap, lambda _s: None,
+                                        one_block_max=1 << 30)
+        assert_same(got, gen.query_plain(cap=cap, staged=staged))
+
+
 @pytest.mark.cuda
 def test_kernel_launches_of_one_query():
+    """The one-block route: the runs pass and one launch after the sync;
+    the radix route: the expansion, a scatter a pass and a histogram
+    between two; a query without candidates: the runs pass alone."""
     device = card()
-    for foreign, want in ((False, 1), (True, 0)):
-        reads, segs = world(4, n_seg=20, seg_lens=(50, 3000),
-                            foreign=foreign)
-        gen = DeviceCandGen(make_bundle(reads), device)
+    reads, segs = world(4, n_seg=20, seg_lens=(50, 3000))
+    gen = DeviceCandGen(make_bundle(reads), device)
+    staged = gen.upload(segs)
+    bits = sum(candgen_cuda.key_bits(len(segs), gen.row_of.shape[0]))
+    passes = -(-bits // candgen_cuda.DIGIT_BITS)
+    none = dict.fromkeys(candgen_cuda.LAUNCHES, 0)
+    for route, want in (
+            (dict(one_block_max=1 << 30), dict(candgen_block=1)),
+            (dict(one_block_max=0), dict(candgen_expand=1,
+                                         candgen_hist=passes - 1,
+                                         candgen_scatter=passes))):
         for k in candgen_cuda.LAUNCHES:
             candgen_cuda.LAUNCHES[k] = 0
-        c = gen.query(segs)
+        c = forced(gen, staged, **route)
         torch.cuda.synchronize()
-        assert (c.n_total > 0) == bool(want)
-        assert candgen_cuda.LAUNCHES == {
-            "candgen_runs": 1, "candgen_scan": 1, "candgen_expand": want,
-            "candgen_finish": want}
+        assert 0 < c.n_total <= candgen_cuda.BLOCK_MAX
+        assert candgen_cuda.LAUNCHES == dict(none, candgen_runs=1, **want)
+    reads, segs = world(4, n_seg=20, seg_lens=(50, 3000), foreign=True)
+    gen = DeviceCandGen(make_bundle(reads), device)
+    for k in candgen_cuda.LAUNCHES:
+        candgen_cuda.LAUNCHES[k] = 0
+    assert gen.query(segs).n_total == 0
+    assert candgen_cuda.LAUNCHES == dict(none, candgen_runs=1)
