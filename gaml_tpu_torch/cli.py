@@ -5,6 +5,7 @@ Usage: python -m gaml_tpu_torch.cli <config> [--backend bfs|device]
                                     [--paired-device | --paired-device-inc]
                                     [--device-state] [--pacbio-device]
                                     [--distributed host:port]
+                                    [--trace DIR]
 
 The same run as ``python -m gaml_tpu.cli``, on the port's own host layers
 and torch.  ``--backend`` picks the short-read extension: ``device``
@@ -32,6 +33,15 @@ Every process runs the same anneal from the same seed; the device
 scorers split the reads between them and merge each score exactly, so
 every process prints the same trace.  Without a device-scorer flag every
 process runs the whole anneal.  Only process 0 writes outputs.
+
+``--trace DIR`` runs the anneal under torch.profiler (the CPU, and CUDA
+on a card), which turns on the program's spans and counters
+(utils.metrics): the Chrome trace goes to ``DIR/trace.json``, with every
+span as a ``gaml.<name>`` annotation on the device operations' clock,
+and the spans' calls, total and self seconds and parents, the counters
+(the optimizer's ``moves.*`` among them) and the optimizer's timers to
+``DIR/summary.json``.  Each process of a group writes into
+``DIR/rank<r>``.
 
 The last line of output reports the device work: window batches,
 candidates, PacBio forward-DP cells by route, kernel launches (with the
@@ -117,6 +127,33 @@ def starting_paths_from_config(configs, graph, settings,
             if graph.node_len(i) > settings.threshold]
 
 
+def traced_run(opt, paths, write_outputs: bool, device: str,
+               out_dir: str) -> None:
+    """``opt.run`` under torch.profiler with the program's spans and
+    counters on: the Chrome trace to ``out_dir/trace.json``, the trace
+    store's snapshot with the optimizer's counters and timers to
+    ``out_dir/summary.json``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .utils.metrics import TRACE
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    TRACE.reset()
+    with profile(activities=acts) as prof:
+        opt.run(paths, write_outputs=write_outputs)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    summary = TRACE.snapshot()
+    own = opt.metrics.snapshot()
+    summary["counters"].update(own["counters"])
+    summary["timers"] = own["timers"]
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1, sort_keys=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="gaml-tpu-torch")
     ap.add_argument("config")
@@ -151,6 +188,10 @@ def main(argv=None) -> int:
                          "host:port (or set GAML_COORD); requires GAML_NPROC "
                          "and GAML_PROC_ID; GAML_DIST_BACKEND picks the "
                          "torch.distributed backend")
+    ap.add_argument("--trace", default="", metavar="DIR",
+                    help="run the anneal under torch.profiler: its Chrome "
+                         "trace to DIR/trace.json, the program's spans "
+                         "and counters to DIR/summary.json")
     args = ap.parse_args(argv)
 
     coord = args.distributed or os.environ.get("GAML_COORD", "")
@@ -229,7 +270,11 @@ def run(args, device: str, rank: int = 0, world: int = 1) -> int:
 
         paths = load_checkpoint(opt, args.resume)
     t0 = time.perf_counter()
-    opt.run(paths, write_outputs=rank == 0)
+    if args.trace:
+        traced_run(opt, paths, rank == 0, device, args.trace if world == 1
+                   else os.path.join(args.trace, f"rank{rank}"))
+    else:
+        opt.run(paths, write_outputs=rank == 0)
     anneal_s = time.perf_counter() - t0
     short = {id(rs): rs for rs in [rs for _c, rs in single]
              + [rs for _c, pair in paired for rs in pair]}

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..index.maxhash import HASH_XOR, K_INDEX_KMER
+from ..utils.metrics import span
 
 K = K_INDEX_KMER
 L_MAX = 4096  # longest read length the runs pass holds in shared memory
@@ -174,14 +175,16 @@ def query_kernel(gen, codes, seg_base, seg_len, cap, mark,
         if count is None:
             count = gen._count = torch.empty(1, dtype=torch.int64,
                                              pin_memory=True)
-        _call("candgen_runs", stream.cuda_stream, (
-            codes, seg_base, seg_len, seg_len.shape[0], g, L, gen.sf,
-            gen.off, gen.bucket, n_tiles, ws, count))
-        LAUNCHES["candgen_runs"] += 1
-        mark("runs")
-        stream.synchronize()  # the query's one host synchronisation
-        n_total = int(count.numpy()[0])
-        mark("sync")
+        with span("candgen.runs"):
+            _call("candgen_runs", stream.cuda_stream, (
+                codes, seg_base, seg_len, seg_len.shape[0], g, L, gen.sf,
+                gen.off, gen.bucket, n_tiles, ws, count))
+            LAUNCHES["candgen_runs"] += 1
+            mark("runs")
+            with span("sync"):  # the query's one host synchronisation
+                stream.synchronize()
+                n_total = int(count.numpy()[0])
+            mark("sync")
         if cap is not None and n_total > cap:
             return Candidates(n_total, None, None, None, None, None, codes,
                               seg_base, seg_len)
@@ -190,29 +193,31 @@ def query_kernel(gen, codes, seg_base, seg_len, cap, mark,
         if n_total >= 2 ** 31:
             raise ValueError(f"{n_total} candidates: the sort's indices are "
                              f"below 2^31")
-        seg_bits, rid_bits = key_bits(seg_len.shape[0], gen.row_of.shape[0])
-        bits = seg_bits + rid_bits
-        # five rows of n_total, each 64-byte aligned
-        out = torch.empty((5, -(-n_total // 8) * 8), dtype=torch.int64,
-                          device=dev)
-        args = (ws, n_tiles, gen.rids, gen.seed2, gen.row_of, n_total,
-                rid_bits, bits)
-        if bits <= 32 and n_total <= min(one_block_max, BLOCK_MAX):
-            _call("candgen_sort", stream.cuda_stream,
-                  args + (0, None, out))
-            LAUNCHES["candgen_block"] += 1
-            mark("block")
-        else:
-            scratch = torch.empty(
-                lib.gaml_candgen_scratch_bytes(n_total, int(bits > 32)),
-                dtype=torch.uint8, device=dev)
-            _call("candgen_sort", stream.cuda_stream,
-                  args + (1, scratch, out))
-            passes = max(1, -(-bits // DIGIT_BITS))
-            LAUNCHES["candgen_expand"] += 1
-            LAUNCHES["candgen_hist"] += passes - 1
-            LAUNCHES["candgen_scatter"] += passes
-            mark("sort")
+        with span("candgen.sort"):
+            seg_bits, rid_bits = key_bits(seg_len.shape[0],
+                                          gen.row_of.shape[0])
+            bits = seg_bits + rid_bits
+            # five rows of n_total, each 64-byte aligned
+            out = torch.empty((5, -(-n_total // 8) * 8), dtype=torch.int64,
+                              device=dev)
+            args = (ws, n_tiles, gen.rids, gen.seed2, gen.row_of, n_total,
+                    rid_bits, bits)
+            if bits <= 32 and n_total <= min(one_block_max, BLOCK_MAX):
+                _call("candgen_sort", stream.cuda_stream,
+                      args + (0, None, out))
+                LAUNCHES["candgen_block"] += 1
+                mark("block")
+            else:
+                scratch = torch.empty(
+                    lib.gaml_candgen_scratch_bytes(n_total, int(bits > 32)),
+                    dtype=torch.uint8, device=dev)
+                _call("candgen_sort", stream.cuda_stream,
+                      args + (1, scratch, out))
+                passes = max(1, -(-bits // DIGIT_BITS))
+                LAUNCHES["candgen_expand"] += 1
+                LAUNCHES["candgen_hist"] += passes - 1
+                LAUNCHES["candgen_scatter"] += passes
+                mark("sort")
     return Candidates(n_total, *out[:, :n_total], codes, seg_base, seg_len)
 
 

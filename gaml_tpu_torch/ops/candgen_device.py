@@ -41,6 +41,7 @@ import torch
 
 from ..index.maxhash import (HASH_XOR, K_INDEX_KMER, index_csr,
                              pack_kmers_batch)
+from ..utils.metrics import span
 from .candgen_cuda import fp_buckets
 
 K = K_INDEX_KMER
@@ -95,6 +96,16 @@ def stage_marker(split: Optional[list], device: torch.device):
 
     mark("start")
     return mark
+
+
+def indexed_device(device) -> torch.device:
+    """``device`` as a torch.device, a bare "cuda" given the current
+    card's index: the device of the tensors made there, which the kernels'
+    checks compare with."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def stage_ms(split: list) -> dict:
@@ -156,7 +167,7 @@ class DeviceCandGen:
         with the last repeated, ``rids``, ``seed2`` [rows, 2] and
         ``row_of``; and the kernel's lookup table ``bucket`` (int32,
         candgen_cuda.fp_buckets)."""
-        dev = self.device = torch.device(device)
+        dev = self.device = indexed_device(device)
         self.read_len = int(read_len)
         fp, off = fp.astype(np.int64), off.astype(np.int64)
         self.bucket = torch.as_tensor(fp_buckets(fp), device=dev)
@@ -232,13 +243,16 @@ class DeviceCandGen:
         CUDA device the hand-written kernels (ops.candgen_cuda, one host
         synchronisation), on the CPU ``query_plain``.  ``split``: a list
         that receives (stage, mark) at the end of each stage (a CUDA event
-        on the card, a host clock reading on the CPU)."""
+        on the card, a host clock reading on the CPU).  Traced as the spans
+        ``candgen.upload``, ``candgen.runs`` (with the count's ``sync``)
+        and ``candgen.sort``, on both routes."""
         if self.device.type == "cpu":
             return self.query_plain(seqs, cap, staged, split)
         from .candgen_cuda import query_kernel
 
         mark = stage_marker(split, self.device)
-        batch = staged if staged is not None else self.upload(seqs)
+        with span("candgen.upload"):
+            batch = staged if staged is not None else self.upload(seqs)
         mark("upload")
         return query_kernel(self, *batch, cap, mark)
 
@@ -256,8 +270,9 @@ class DeviceCandGen:
         synchronisations on the card (two ``nonzero``, the count)."""
         PLAIN_CALLS["query_plain"] += 1
         mark = stage_marker(split, self.device)
-        codes_u8, seg_base, seg_len = staged if staged is not None else \
-            self.upload(seqs)
+        with span("candgen.upload"):
+            codes_u8, seg_base, seg_len = staged if staged is not None else \
+                self.upload(seqs)
         mark("upload")
         dev = self.device
         g = codes_u8.shape[0]
@@ -313,34 +328,37 @@ class DeviceCandGen:
             mark("searchsorted")
             return s, kp_c, cnt, self.off[idx]
 
-        s_f, kp_f, cnt_f, lo_f = runs(codes)
-        s_r, kp_r, cnt_r, lo_r = runs(rc_codes)
-        counts = torch.cat([cnt_f, cnt_r])
-        n_total = int(counts.sum())
+        with span("candgen.runs"):
+            s_f, kp_f, cnt_f, lo_f = runs(codes)
+            s_r, kp_r, cnt_r, lo_r = runs(rc_codes)
+            counts = torch.cat([cnt_f, cnt_r])
+            with span("sync"):
+                n_total = int(counts.sum())
         mark("count_sync")
         if cap is not None and n_total > cap:
             return Candidates(n_total, None, None, None, None, None,
                               codes_u8, seg_base, seg_len)
         if n_total == 0:
             return none
-        n_runs = counts.shape[0]
-        rix = torch.repeat_interleave(torch.arange(n_runs, device=dev),
-                                      counts, output_size=n_total)
-        start = torch.cumsum(counts, 0) - counts
-        kk = torch.arange(n_total, device=dev) - start[rix]
-        rid = self.rids[torch.cat([lo_f, lo_r])[rix] + kk]
-        orient = (rix >= cnt_f.shape[0]).to(torch.int64)
-        s = torch.cat([s_f, s_r])[rix]
-        seg = pid[s]
-        loc = torch.cat([kp_f, kp_r])[rix] - seg_base[seg]
-        g0 = torch.where(orient == 1, seg_len[seg] - loc - K, loc)
-        r0 = self.seed2[self.row_of[rid], orient]
-        mark("expand")
-        order = torch.sort((seg << 32) | rid, stable=True).indices
-        out = Candidates(n_total, rid[order], g0[order], r0[order],
-                         orient[order], seg[order], codes_u8, seg_base,
-                         seg_len)
-        mark("sort")
+        with span("candgen.sort"):
+            n_runs = counts.shape[0]
+            rix = torch.repeat_interleave(torch.arange(n_runs, device=dev),
+                                          counts, output_size=n_total)
+            start = torch.cumsum(counts, 0) - counts
+            kk = torch.arange(n_total, device=dev) - start[rix]
+            rid = self.rids[torch.cat([lo_f, lo_r])[rix] + kk]
+            orient = (rix >= cnt_f.shape[0]).to(torch.int64)
+            s = torch.cat([s_f, s_r])[rix]
+            seg = pid[s]
+            loc = torch.cat([kp_f, kp_r])[rix] - seg_base[seg]
+            g0 = torch.where(orient == 1, seg_len[seg] - loc - K, loc)
+            r0 = self.seed2[self.row_of[rid], orient]
+            mark("expand")
+            order = torch.sort((seg << 32) | rid, stable=True).indices
+            out = Candidates(n_total, rid[order], g0[order], r0[order],
+                             orient[order], seg[order], codes_u8, seg_base,
+                             seg_len)
+            mark("sort")
         return out
 
     def query_host(self, seqs: List[np.ndarray], cap: Optional[int] = None):

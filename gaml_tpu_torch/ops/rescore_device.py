@@ -22,6 +22,11 @@ each window segment belongs to a job, the dedup groups are (window,
 read) as for one assembly, and the per-read sums are binned by (job,
 read) in int64, where the JAX package packs (segment << 20 | read) into
 int32 and overflows past 2^11 segments (ROADMAP C2).
+
+Traced (utils.metrics): ``rescore`` (and the counter ``rescore.calls``)
+around a rescore, ``extend`` around the extension, ``rescore.dedup``,
+``rescore.sums`` and ``rescore.reduce`` around the stages of ``score``,
+and ``sync`` around each point where the host waits for the card.
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .candgen_device import Candidates, DeviceCandGen
+from ..utils.metrics import count, span
+from .candgen_device import Candidates, DeviceCandGen, indexed_device
 from .extend_device import DeviceExtender
 from .score import alignment_probs, dedup_alignments, reduce_read_probs
 
@@ -46,7 +52,7 @@ class DeviceRescorer:
     def __init__(self, bundle=None, read_lens_all: np.ndarray = None,
                  ext: DeviceExtender = None, device="cuda",
                  gen: DeviceCandGen = None):
-        self.device = torch.device(device)
+        self.device = indexed_device(device)
         self.gen = gen if gen is not None else DeviceCandGen(bundle,
                                                              self.device)
         self.ext = ext if ext is not None else DeviceExtender(
@@ -59,8 +65,10 @@ class DeviceRescorer:
             np.asarray(read_lens_all, dtype=np.int32), device=self.device)
 
     def _extend(self, c: Candidates):
-        return self.ext.extend(c.codes, c.seg_base[c.seg], c.seg_len[c.seg],
-                               c.g0, c.r0, self.gen.row_of[c.rid], c.orient)
+        with span("extend"):
+            return self.ext.extend(c.codes, c.seg_base[c.seg],
+                                   c.seg_len[c.seg], c.g0, c.r0,
+                                   self.gen.row_of[c.rid], c.orient)
 
     def stage(self, seqs: List[np.ndarray]):
         """Upload a window batch (DeviceCandGen.upload) for a later
@@ -81,12 +89,15 @@ class DeviceRescorer:
         call: seg_job maps each window segment to its job (segments past
         its end are job 0), ``total_len`` is then a [n_jobs] sequence and
         score / zero_reads come back as [n_jobs] numpy arrays."""
-        c = self.gen.query(seqs, cap, staged=staged)
-        if c.overflow:
-            return None, None, c.n_total
-        ext = self._extend(c) if c.n_total else None
-        return self.score(c, ext, log_match, log_mismatch, total_len,
-                          min_prob_per_base, min_prob_start, seg_job, n_jobs)
+        with span("rescore"):
+            count("rescore.calls")
+            c = self.gen.query(seqs, cap, staged=staged)
+            if c.overflow:
+                return None, None, c.n_total
+            ext = self._extend(c) if c.n_total else None
+            return self.score(c, ext, log_match, log_mismatch, total_len,
+                              min_prob_per_base, min_prob_start, seg_job,
+                              n_jobs)
 
     def score(self, c: Candidates, ext, log_match: float,
               log_mismatch: float, total_len, min_prob_per_base: float,
@@ -97,37 +108,46 @@ class DeviceRescorer:
         by (job, read)) and GetTotalProb of each.  Returns (score,
         zero_reads, n_total), per job as in ``rescore``."""
         n = self.n_reads
-        read_probs = torch.zeros(n_jobs * n, dtype=torch.float64,
-                                 device=self.device)
         if ext is not None:
-            ok, errs, begin = ext
-            new_grp = torch.ones_like(ok)
-            new_grp[1:] = (c.seg[1:] != c.seg[:-1]) | \
-                (c.rid[1:] != c.rid[:-1])
-            grp = torch.cumsum(new_grp.to(torch.int64), 0)
-            order, keep = dedup_alignments(grp, begin, ok)
-            idx = order[keep]
-            rid = c.rid[idx]
-            bins = rid
-            if seg_job is not None:
-                job = np.zeros(len(c.seg_len), np.int64)
-                job[:len(seg_job)] = np.asarray(seg_job)[:len(job)]
-                bins = torch.as_tensor(job, device=self.device)[
-                    c.seg[idx]] * n + rid
-            read_probs.index_add_(0, bins, alignment_probs(
-                errs[idx], self.lens[rid], log_match, log_mismatch))
-        if seg_job is None:
-            score, zeros, _ = reduce_read_probs(
-                read_probs, self.lens, total_len, min_prob_per_base,
-                min_prob_start)
-            return float(score), int(zeros), c.n_total
-        tl = np.asarray(total_len, dtype=np.int64).reshape(-1)
-        per_job = [reduce_read_probs(read_probs[j * n:(j + 1) * n],
-                                     self.lens, int(tl[j]),
-                                     min_prob_per_base, min_prob_start)[:2]
-                   for j in range(n_jobs)]
-        out = torch.stack([torch.stack([s, z.to(torch.float64)])
-                           for s, z in per_job]).cpu().numpy()
+            with span("rescore.dedup"):
+                ok, errs, begin = ext
+                new_grp = torch.ones_like(ok)
+                new_grp[1:] = (c.seg[1:] != c.seg[:-1]) | \
+                    (c.rid[1:] != c.rid[:-1])
+                grp = torch.cumsum(new_grp.to(torch.int64), 0)
+                order, keep = dedup_alignments(grp, begin, ok)
+                with span("sync"):  # the mask's count
+                    idx = order[keep]
+                rid = c.rid[idx]
+                bins = rid
+                if seg_job is not None:
+                    job = np.zeros(len(c.seg_len), np.int64)
+                    job[:len(seg_job)] = np.asarray(seg_job)[:len(job)]
+                    bins = torch.as_tensor(job, device=self.device)[
+                        c.seg[idx]] * n + rid
+        with span("rescore.sums"):
+            read_probs = torch.zeros(n_jobs * n, dtype=torch.float64,
+                                     device=self.device)
+            if ext is not None:
+                read_probs.index_add_(0, bins, alignment_probs(
+                    errs[idx], self.lens[rid], log_match, log_mismatch))
+        with span("rescore.reduce"):
+            if seg_job is None:
+                score, zeros, _ = reduce_read_probs(
+                    read_probs, self.lens, total_len, min_prob_per_base,
+                    min_prob_start)
+                with span("sync"):
+                    return float(score), int(zeros), c.n_total
+            tl = np.asarray(total_len, dtype=np.int64).reshape(-1)
+            per_job = [reduce_read_probs(read_probs[j * n:(j + 1) * n],
+                                         self.lens, int(tl[j]),
+                                         min_prob_per_base,
+                                         min_prob_start)[:2]
+                       for j in range(n_jobs)]
+            stacked = torch.stack([torch.stack([s, z.to(torch.float64)])
+                                   for s, z in per_job])
+            with span("sync"):
+                out = stacked.cpu().numpy()
         return out[:, 0].copy(), out[:, 1].astype(np.int64), c.n_total
 
     def extend(self, seqs: List[np.ndarray], cap: int):
@@ -141,6 +161,7 @@ class DeviceRescorer:
         out = self._extend(c) + (c.rid, c.orient, c.seg)
 
         def fetch():
-            return tuple(t.cpu().numpy() for t in out), c.n_total
+            with span("sync"):
+                return tuple(t.cpu().numpy() for t in out), c.n_total
 
         return fetch

@@ -35,6 +35,7 @@ _EMPTY_COLUMNS = AlignmentColumns.from_tuples([])
 from ..core import dna
 from ..core.io import iter_fastq
 from ..core.paths import invert_path
+from ..utils.metrics import count, span
 
 Subpath = Tuple[int, ...]
 
@@ -538,7 +539,12 @@ class ReadSet:
         return a zero-arg closure that blocks on the results and fills the
         cache — callers pipelining several read sets dispatch all batches
         before fetching any (ProbCalculator.prefetch_alignments).  Paths
-        that complete synchronously return None."""
+        that complete synchronously return None.
+
+        Traced on the device backend: the native route as the span
+        ``align.native`` and the counters ``align.native_batches`` and
+        ``align.native_windows``, the device route (its finish too) as
+        ``align.device``."""
         if subpaths:
             self.cache_version += 1
         for sp in subpaths:
@@ -554,16 +560,22 @@ class ReadSet:
                 est = sum(min(node_len(e), 300) for sp in subpaths
                           for e in sp)
                 if est < self._dev_min_bases:
-                    self._precompute_native_batch(graph, subpaths, bundle)
+                    with span("align.native"):
+                        self._precompute_native_batch(graph, subpaths,
+                                                      bundle)
+                    count("align.native_batches")
+                    count("align.native_windows", len(subpaths))
                     return None
-            fin_align = self.aligner.align_subpaths_batch(
-                graph, list(subpaths), defer=defer)
+            with span("align.device"):
+                fin_align = self.aligner.align_subpaths_batch(
+                    graph, list(subpaths), defer=defer)
 
             def finish(results=None):
-                if results is None:
-                    results = fin_align()
-                for sp, als in zip(subpaths, results):
-                    self.aligment_cache[sp] = als
+                with span("align.device"):
+                    if results is None:
+                        results = fin_align()
+                    for sp, als in zip(subpaths, results):
+                        self.aligment_cache[sp] = als
 
             if defer:
                 return finish
