@@ -24,7 +24,10 @@ the JAX package is imported.
    port's own CPU engine (which runs the plain versions), with warm
    timings, the stage split (candgen, extension, dedup + reduction) and
    the extension against its plain version on the rescore's own
-   candidates; the candgen kernels (csrc/candgen.cu) bit-equal to the
+   candidates, and the stage after it (csrc/rescore.cu's two kernels
+   against the torch chain: kept alignments and zero reads equal, score
+   within 1e-13, both routes' device and host times, the longest
+   (segment, read) run); the candgen kernels (csrc/candgen.cu) bit-equal to the
    native query and to their plain version (query_plain), also on the
    radix route, both timed and split into stages with CUDA events, the
    runs pass launched once by the rescore and query_plain never, the hand-written sort stage timed beside
@@ -162,6 +165,7 @@ CANDGEN = ("candgen", "gaml_tpu_torch/csrc/candgen.cu",
 CANDGEN_KERNELS = ("candgen_runs_kernel", "candgen_block_kernel",
                    "candgen_expand_kernel", "candgen_hist_kernel",
                    "candgen_scatter_kernel")
+RESCORE_KERNELS = ("rescore_dedup_sums_kernel", "rescore_reduce_kernel")
 PB_MATCH, PB_MISMATCH = 0.85, 0.0375  # config mismatch_prob=0.0375
 # peaks of one NVIDIA H100 SXM for the bounds: HBM bytes/s; the SM clock;
 # 16-bit lane operations/s of the packed integer band (132 SMs x 64 int32
@@ -305,7 +309,7 @@ def phase_card():
         check(usage[entry].get("spill_stores", 0) == 0,
               f"{entry} spills: {usage[entry]}")
         print(f"  {entry}: " + json.dumps(usage[entry]), flush=True)
-    for frag in CANDGEN_KERNELS:  # each over its template instances
+    for frag in CANDGEN_KERNELS + RESCORE_KERNELS:  # each over its instances
         names = [k for k in sass if frag in k]
         reg = ptxas_usage(build.build_info["log"], frag)
         check(names and reg, f"{frag}: kernels {names} in the SASS, "
@@ -605,7 +609,9 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None,
     """Candgen and rescore on ``device`` against the native query and the
     port's CPU engine; score tolerance 2e-6 relative (float32 sums taken
     in another order).  Then the stage split and the exact extension
-    against its plain version on the rescore's own candidates.  With
+    against its plain version on the rescore's own candidates, and the
+    stage after it (dedup, sums, reduction: the two kernels against the
+    torch chain, score_stage) on them.  With
     ``jobs`` = k, k assemblies (the genome each, bench.py's batched mode)
     in one rescore (seg_job, one extension launch) against k single
     rescores: each job's score within 1e-12 rel, zero reads equal, both
@@ -666,7 +672,8 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None,
     split = {"candgen_ms": timer(device, candgen, reps, host_clock=True),
              "extend_ms": timer(device, lambda: dev._extend(c), reps),
              "dedup_reduce_ms": timer(device, lambda: dev.score(
-                 c, ext, **args), reps, host_clock=True)}
+                 c, ext, **args), reps, host_clock=True),
+             "score_stage": score_stage(device, dev, c, ext, args, reps)}
     i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
     fargs = (dev.ext.codes, dev.ext.lens, c.codes, i32(c.seg_base[c.seg]),
              i32(c.seg_len[c.seg]), i32(c.g0), i32(c.r0),
@@ -702,6 +709,87 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None,
         print(f"  {jobs} jobs in one rescore: " + json.dumps(res_jobs),
               flush=True)
         res["jobs"] = res_jobs
+    return res
+
+
+def longest_run(c):
+    """The most candidates of ``c`` in one run of equal (segment, read)."""
+    import numpy as np
+
+    if not c.n_total:
+        return 0
+    seg, rid = c.seg.cpu().numpy(), c.rid.cpu().numpy()
+    heads = np.nonzero(np.r_[True, (seg[1:] != seg[:-1]) |
+                             (rid[1:] != rid[:-1])])[0]
+    return int(np.diff(np.r_[heads, len(seg)]).max())
+
+
+def device_ms(fn, reps):
+    """Device time a call of fn(): the durations of the kernels, copies
+    and memsets in torch.profiler's trace of ``reps`` warm calls, as the
+    benchmark's trace reader sums them; None where the trace holds no
+    device operation."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="gaml_smoke_prof_") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            data = json.load(f)
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    us = sum(float(e.get("dur", 0.0)) for e in events
+             if e.get("ph") == "X" and
+             e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return us / 1e3 / reps if us else None
+
+
+def score_stage(device, dev, c, ext, args, reps):
+    """DeviceRescorer.score's stage on the rescore's own candidates, the
+    kernels (ops.rescore_cuda.score_kernel: two launches, one read-back)
+    against the torch chain (score_plain): kept alignments and zero reads
+    equal, score within 1e-13 rel; each route's device time (the kernels
+    and copies a call launches) and host clock a call, and the longest
+    (segment, read) run."""
+    from gaml_tpu_torch.ops import rescore_cuda
+    from gaml_tpu_torch.ops.rescore_device import (dedup_sums_plain,
+                                                   score_plain)
+
+    idx, _ = dedup_sums_plain(dev.n_reads, dev.lens, c, ext,
+                              args["log_match"], args["log_mismatch"])
+    want = score_plain(dev.n_reads, dev.lens, c, ext, **args)
+    res = {"longest_run": longest_run(c), "candidates": c.n_total,
+           "kept": len(idx)}
+    if device.type != "cuda":
+        return res
+    before = dict(rescore_cuda.LAUNCHES)
+    scores, zeros, kept = rescore_cuda.score_kernel(dev, c, ext, **args)
+    launched = {k: v - before[k] for k, v in rescore_cuda.LAUNCHES.items()}
+    rel = abs(float(scores[0]) - want[0]) / abs(want[0])
+    check(kept == len(idx) and int(zeros[0]) == want[1] and rel <= 1e-13,
+          f"score stage: kernels ({scores[0]}, {zeros[0]}, {kept} kept) vs "
+          f"the chain ({want[0]}, {want[1]}, {len(idx)} kept)")
+    check(launched == {"rescore_dedup_sums": 1, "rescore_reduce": 1},
+          f"score stage launches {launched}")
+
+    def kernel():
+        return rescore_cuda.score_kernel(dev, c, ext, **args)
+
+    def plain():
+        return score_plain(dev.n_reads, dev.lens, c, ext, **args)
+
+    res.update(rel_vs_plain=rel, launches=launched,
+               device_ms=device_ms(kernel, reps),
+               plain_device_ms=device_ms(plain, reps),
+               host_ms=timer(device, kernel, reps, host_clock=True),
+               plain_host_ms=timer(device, plain, reps, host_clock=True))
     return res
 
 

@@ -287,11 +287,11 @@ def run(args, device: str, rank: int = 0, world: int = 1) -> int:
     if args.backend == "device" or pacbio:
         from .align import aligner
         from .ops import candgen_cuda, candgen_device, extend_cuda, \
-            forward_cuda
+            forward_cuda, rescore_cuda
 
         launches = {**extend_cuda.LAUNCHES, **forward_cuda.LAUNCHES,
-                    **candgen_cuda.LAUNCHES, **candgen_device.PLAIN_CALLS,
-                    **aligner.HOST_CALLS}
+                    **candgen_cuda.LAUNCHES, **rescore_cuda.LAUNCHES,
+                    **candgen_device.PLAIN_CALLS, **aligner.HOST_CALLS}
     print("device work: " + json.dumps({
         "device": device,
         "backend": args.backend,

@@ -20,7 +20,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("band_dp.cu", "banded_forward.cu", "candgen.cu")
+SOURCES = ("band_dp.cu", "banded_forward.cu", "candgen.cu", "rescore.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -130,6 +130,15 @@ def load():
         lib.gaml_candgen_runs.restype = i
         lib.gaml_candgen_sort.argtypes = [p, i, p, p, p] + [i] * 4 + [p] * 3
         lib.gaml_candgen_sort.restype = i
+        for name in ("tile", "reduce_tile", "reduce_threads"):
+            getattr(lib, "gaml_rescore_" + name).argtypes = []
+            getattr(lib, "gaml_rescore_" + name).restype = i
+        d = ctypes.c_double
+        lib.gaml_rescore_dedup_sums.argtypes = [p] * 7 + [ll, ll, d, d] + \
+            [p] * 5
+        lib.gaml_rescore_dedup_sums.restype = i
+        lib.gaml_rescore_reduce.argtypes = [p, p, ll, i, p, d, d, d] + [p] * 5
+        lib.gaml_rescore_reduce.restype = i
         build_info["path"] = so
         _lib = lib
         return lib
