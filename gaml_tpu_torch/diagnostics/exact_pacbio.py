@@ -12,7 +12,6 @@ reference binary pins both the band DP and the cache assembly.
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import List
 
 import numpy as np
 
@@ -60,35 +59,11 @@ class ExactPacbioReadSet(PacbioReadSet):
                 self.anchors_reverse.setdefault(rid, set()).add(node_id)
 
     # --------------------------------------------------------- slow path
-    def _slow_prepare(self, graph, path, save_to_cache: bool = True):
-        """Reference GetReadProbabilitiesSlow's front half
-        (graph.cc:2650-2795) with the shim as the aligner."""
-        seq, begins, ends = self._spell_with_positions(graph, path)
-        path = list(path)
-
-        read_filter = set()
-        for e in path:
-            if e >= 0:
-                read_filter.update(self.anchors_cache.get(e, ()))
-        if not read_filter:
-            read_filter = set(range(self.reads_num))
-
-        subpath_starts = {}
-        dont_save = set()
-        if save_to_cache:
-            for i in range(len(path)):
-                subpath: List[int] = []
-                for j in range(i, len(path)):
-                    subpath.append(path[j])
-                    key = tuple(subpath)
-                    if key in self.aligment_cache:
-                        dont_save.add(key)
-                    else:
-                        self.aligment_cache[key] = []
-                    subpath_starts[key] = i
-                    if ends[j] - begins[i] - (ends[i] - begins[i]) > \
-                            self.max_read_len:
-                        break
+    def _chain_jobs(self, graph, prep):
+        """Reference GetReadProbabilitiesSlow's aligner half
+        (graph.cc:2650-2795) with the shim as the aligner; the windows are
+        reserved as in the production class."""
+        seq = self._spell(graph, prep["path"])
 
         # the doubled target (graph.cc:2686-2688)
         seq_str = dna.decode_seq(seq)
@@ -96,7 +71,7 @@ class ExactPacbioReadSet(PacbioReadSet):
         total_all = len(seqall)
 
         reads = [(self.get_read_name(rid), self.read_seq[rid])
-                 for rid in sorted(read_filter)]
+                 for rid in self._read_filter(prep["path"])]
         jobs = []
         meta = []
         for line in sam_lines(reads, seq):
@@ -108,9 +83,8 @@ class ExactPacbioReadSet(PacbioReadSet):
                                      tend=align.tstart + align.length,
                                      qend=self.read_lens[rid])
             meta.append((rid, pseudo))
-        return dict(seq=seq, begins=begins, ends=ends, path=path,
-                    subpath_starts=subpath_starts, dont_save=dont_save,
-                    jobs=jobs, meta=meta, save_to_cache=save_to_cache)
+        prep.update(seq=seq, jobs=jobs, meta=meta)
+        return prep
 
     def _forward_batch(self, seq, jobs, extents=None):
         log_m = float(np.log(self.match_prob))

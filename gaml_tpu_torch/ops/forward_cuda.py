@@ -15,8 +15,9 @@ Inputs are what the device engine keeps or ships (ops/forward_device.py):
 
 A job's rows are 1 .. min(rlen, rmax, stride).  The band width is 64 or
 128 on the card; the plain version takes any width.  On a CPU tensor the
-wrapper runs the plain version; on a CUDA tensor it launches the kernel
-or raises.
+wrapper runs the plain version in the kernel's precision (float64, the
+result rounded to float32 as the kernel returns it); on a CUDA tensor it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -87,7 +88,8 @@ def banded_forward(reads, row, seq, steps, c0, gstart, glen, rlen,
     b = _check(reads, row, seq, steps, c0, gstart, glen, rlen)
     if steps.device.type == "cpu":
         return banded_forward_ref(reads, row, seq, steps, c0, gstart, glen,
-                                  rlen, log_match, log_mismatch, width)
+                                  rlen, log_match, log_mismatch, width,
+                                  dtype=torch.float64).float()
     if steps.device.type != "cuda":
         raise ValueError(f"unsupported device {steps.device}")
     if width not in WIDTHS:

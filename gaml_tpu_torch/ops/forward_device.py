@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core import dna
+from ..utils.metrics import span
 
 from .forward_cuda import banded_forward
 
@@ -65,11 +66,11 @@ class ForwardDeviceEngine:
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def forward(self, seq, steps, c0, gstarts, glens, rlens, log_match,
-                log_mismatch, width, rid=None, strand=None, reads=None):
-        """Log-probabilities (float64 numpy [B]) of one batch.  Rows come
-        from the resident matrix by (rid, strand), or densely from
-        ``reads`` [B, rmax] uint8 when ``rid`` is None."""
+    def stage(self, seq, steps, c0, gstarts, glens, rlens, rid=None,
+              strand=None, reads=None):
+        """The kernel's inputs of one batch on the device: rows come from
+        the resident matrix by (rid, strand), or densely from ``reads``
+        [B, rmax] uint8 when ``rid`` is None."""
         b = len(c0)
         if rid is None:
             rows_t = self._upload(reads)
@@ -81,21 +82,41 @@ class ForwardDeviceEngine:
         meta = self._upload(np.stack([
             np.asarray(x, dtype=np.int32).reshape(b)
             for x in (row, c0, gstarts, glens, rlens)]))
-        out = banded_forward(
-            rows_t, meta[0], self._upload(np.asarray(seq, dtype=np.uint8)),
-            self._upload(steps), meta[1], meta[2], meta[3], meta[4],
-            float(log_match), float(log_mismatch), int(width))
-        return out.cpu().numpy().astype(np.float64)
+        return (rows_t, meta[0], self._upload(np.asarray(seq,
+                                                         dtype=np.uint8)),
+                self._upload(steps), meta[1], meta[2], meta[3], meta[4])
+
+    def run(self, staged, log_match, log_mismatch, width):
+        """Log-probabilities (float64 numpy [B]) of a staged batch: one
+        launch, then the read-back (span ``sync``)."""
+        out = banded_forward(*staged, float(log_match), float(log_mismatch),
+                             int(width))
+        with span("sync"):
+            return out.cpu().numpy().astype(np.float64)
+
+    def forward(self, seq, steps, c0, gstarts, glens, rlens, log_match,
+                log_mismatch, width, rid=None, strand=None, reads=None):
+        """Log-probabilities (float64 numpy [B]) of one batch (``stage``,
+        then ``run``)."""
+        return self.run(self.stage(seq, steps, c0, gstarts, glens, rlens,
+                                   rid, strand, reads),
+                        log_match, log_mismatch, width)
+
+    def stage_jobs(self, seq, reads, rlens, centers, gstarts, glens, rid,
+                   strand):
+        """stage() of one batch in scoring/pacbio.py::job_arrays' layout:
+        from the resident rows when there are any and every job has a read
+        id (``rid`` >= 0), else densely from ``reads``."""
+        resident = self.rows is not None and bool((rid >= 0).all())
+        return self.stage(seq, guide_steps(centers), centers[:, 0], gstarts,
+                          glens, rlens, rid=rid if resident else None,
+                          strand=strand if resident else None,
+                          reads=None if resident else reads)
 
     def forward_jobs(self, seq, reads, rlens, centers, gstarts, glens,
                      log_match, log_mismatch, width, rid, strand):
-        """forward() of one batch in scoring/pacbio.py::job_arrays'
-        layout: from the resident rows when there are any and every job
-        has a read id (``rid`` >= 0), else staged densely from ``reads``."""
-        resident = self.rows is not None and bool((rid >= 0).all())
-        return self.forward(
-            seq, guide_steps(centers), centers[:, 0], gstarts, glens, rlens,
-            log_match, log_mismatch, width,
-            rid=rid if resident else None,
-            strand=strand if resident else None,
-            reads=None if resident else reads)
+        """forward() of one batch in job_arrays' layout (``stage_jobs``,
+        then ``run``)."""
+        return self.run(self.stage_jobs(seq, reads, rlens, centers, gstarts,
+                                        glens, rid, strand),
+                        log_match, log_mismatch, width)

@@ -7,6 +7,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.metrics import count, span
+
 
 def add_positions_to_read_probs(positions2, read_probs: np.ndarray) -> None:
     """read_probs[i] (log) += sum of hit masses (reference
@@ -136,22 +138,28 @@ def calc_score_for_pacbio(graph, paths: Sequence[Sequence[int]], read_set,
                           min_prob_start: float = -10.0):
     """Returns (score, zero_reads, total_len).  Walk gaps are NOT split
     (the reference's gap-splitting loop is commented out,
-    graph.cc:3188-3194) — gaps spell as N runs inside one contig."""
+    graph.cc:3188-3194) — gaps spell as N runs inside one contig.  Traced
+    as the counter ``pacbio.scores`` and the spans ``pacbio.sweep`` (every
+    walk's positions, interval sweep and per-read sums) and
+    ``pacbio.reduce``, besides the read set's own."""
+    count("pacbio.scores")
     read_probs = np.full(read_set.get_number_of_reads(), -np.inf)
     total_len = 0
     bad_bases = 0
     # all walks' missing windows in ONE forward-DP device batch; the
     # per-walk loop below then scores from cache
     read_set.precompute_ranges_for_paths(graph, paths)
-    for path in paths:
-        positions2, tl, bad = sweep_walk(graph, path, read_set,
-                                         exp_cov_move)
-        add_positions_to_read_probs(positions2, read_probs)
-        total_len += tl
-        bad_bases += bad
+    with span("pacbio.sweep"):
+        for path in paths:
+            positions2, tl, bad = sweep_walk(graph, path, read_set,
+                                             exp_cov_move)
+            add_positions_to_read_probs(positions2, read_probs)
+            total_len += tl
+            bad_bases += bad
 
     dump = os.environ.get("GAML_TPU_RP_DUMP", "")
-    score, zero_reads = get_total_prob_pacbio(
-        read_probs, total_len, read_set, min_prob_per_base, min_prob_start,
-        dump_path=dump)
+    with span("pacbio.reduce"):
+        score, zero_reads = get_total_prob_pacbio(
+            read_probs, total_len, read_set, min_prob_per_base,
+            min_prob_start, dump_path=dump)
     return score - bad_bases * no_cov_penalty, zero_reads, total_len

@@ -213,10 +213,14 @@ def test_wrapper_cpu_route_is_plain_version_and_checks_inputs():
     args = kernel_inputs(genome, reads, rlens, centers, gst, gl)
     before = forward_cuda.LAUNCHES["banded_forward"]
     got = forward_cuda.banded_forward(*args, LM, LMM, 64)
-    assert torch.equal(got, banded_forward_ref(*args, LM, LMM, 64))
+    # the kernel's precision: float64, the result rounded to float32
+    assert got.dtype == torch.float32
+    assert torch.equal(got, banded_forward_ref(
+        *args, LM, LMM, 64, dtype=torch.float64).float())
     assert forward_cuda.LAUNCHES["banded_forward"] == before
     np.testing.assert_allclose(
-        got.numpy(), port(genome, reads, rlens, centers, gst, gl, 64),
+        got.numpy(), port(genome, reads, rlens, centers, gst, gl, 64,
+                          dtype=torch.float64).astype(np.float32),
         rtol=0, atol=0)
     bad = list(args)
     bad[3] = args[3].to(torch.int32)
@@ -274,5 +278,5 @@ def test_resident_staging_bit_equal_dense(width):
     assert np.array_equal(got, want)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(
-        got, port(seq, dense, rlens, centers, gstarts, glens, width),
-        rtol=1e-6)
+        got, port(seq, dense, rlens, centers, gstarts, glens, width,
+                  dtype=torch.float64), rtol=1e-6)
