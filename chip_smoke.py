@@ -55,10 +55,18 @@ the JAX package is imported.
    world: 1 Mb, 500 reads of 3 kb, 10 % errors, seed 5): the port's read
    set on the card against the same read set's native host route, and the
    native-vs-card crossover in DP cells;
+6b. the long-read seed lookup (csrc/seeds.cu) at the ``pacbio.rescore``
+   cell's shapes (the benchmark's ``ecoli_pacbio`` world, each walk set's
+   batch): hits equal to its plain version's and the host index's, wall,
+   device and plain ms, the host index's ms, the bound and the launches,
+   and one small range alone; the precomputes launch the kernels once a
+   walk set (``python3 chip_smoke.py --seeds`` runs phases 0, 6b and 7
+   only);
 7. a PacBio anneal through the port's CLI (``--device cuda``, in this
    process, under the profiler) against the port's CLI on the native host
    route, held to the assembly-level bound of
-   tests/test_pacbio.py::test_f32_route_anneal_quality_bound;
+   tests/test_pacbio.py::test_f32_route_anneal_quality_bound, its seed
+   lookups on the seed kernels;
 8. the exact band DP: the single-direction API (dp_rows_exact, the
    contract of K3/K4a/K4b) against its plain version at phase 1's band
    inputs, one launch and stacked; the exact two-direction extension
@@ -166,6 +174,9 @@ CANDGEN_KERNELS = ("candgen_runs_kernel", "candgen_block_kernel",
                    "candgen_expand_kernel", "candgen_hist_kernel",
                    "candgen_scatter_kernel")
 RESCORE_KERNELS = ("rescore_dedup_sums_kernel", "rescore_reduce_kernel")
+SEEDS_KERNELS = ("seeds_keys_kernel", "seeds_hist_kernel",
+                 "seeds_scatter_kernel", "seeds_count_kernel",
+                 "seeds_scan_kernel", "seeds_expand_kernel")
 PB_MATCH, PB_MISMATCH = 0.85, 0.0375  # config mismatch_prob=0.0375
 # peaks of one NVIDIA H100 SXM for the bounds: HBM bytes/s; the SM clock;
 # 16-bit lane operations/s of the packed integer band (132 SMs x 64 int32
@@ -309,7 +320,8 @@ def phase_card():
         check(usage[entry].get("spill_stores", 0) == 0,
               f"{entry} spills: {usage[entry]}")
         print(f"  {entry}: " + json.dumps(usage[entry]), flush=True)
-    for frag in CANDGEN_KERNELS + RESCORE_KERNELS:  # each over its instances
+    for frag in CANDGEN_KERNELS + RESCORE_KERNELS + SEEDS_KERNELS:
+        # each over its instances
         names = [k for k in sass if frag in k]
         reg = ptxas_usage(build.build_info["log"], frag)
         check(names and reg, f"{frag}: kernels {names} in the SASS, "
@@ -1034,11 +1046,11 @@ def candgen_fuzz(gen, bundle, genome, n, seed=17):
             "sort": sorts, "s": time.perf_counter() - t0}
 
 
-def device_profile(device, fn, reps=1):
+def device_profile(device, fn, reps=1, kernels=r"candgen_\w+?_kernel"):
     """(kernels and copies the card ran for one fn() call, {kernel: device
-    ms a call}) over ``reps`` calls under torch.profiler; the candgen
-    kernels by name, "memset", "memcpy", the rest as "other"; (None, {})
-    where the profiler saw no device activity."""
+    ms a call}) over ``reps`` calls under torch.profiler; the kernels
+    matching ``kernels`` by name, "memset", "memcpy", the rest as "other";
+    (None, {}) where the profiler saw no device activity."""
     import torch
 
     if device.type != "cuda":
@@ -1053,7 +1065,7 @@ def device_profile(device, fn, reps=1):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         n += 1
-        m = re.search(r"candgen_\w+?_kernel", e.name)
+        m = re.search(kernels, e.name)
         name = m.group(0) if m else "memset" if "Memset" in e.name else \
             "memcpy" if "Memcpy" in e.name else "other"
         ms[name] = ms.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
@@ -1709,6 +1721,208 @@ def phase_pacbio_scoring(device, d, reps=3):
     return res
 
 
+# ----------------------------------------------------------------- phase 6b
+def ecoli_pacbio_world(d, device, seed):
+    """The benchmark's ``ecoli_pacbio`` world at the ``pacbio.rescore``
+    cell's size from ``seed`` (benchmark/worlds/pacbio.py, the CLI's
+    set-up of its long-read library on ``device``): (graph, read set,
+    the cell's pool of walk sets)."""
+    sys.path.insert(0, os.path.join(ROOT, "benchmark"))
+    from harness import common
+
+    from gaml_tpu_torch.cli import prepare_reads, starting_paths_from_config
+    from gaml_tpu_torch.config import load_config, prepare_read_sets
+    from gaml_tpu_torch.core.io import load_lastgraph
+    from gaml_tpu_torch.optimize.settings import AssemblySettings
+
+    worlds = common.load_module("worlds", "pacbio")
+    bench = os.path.join(ROOT, "benchmark")
+    with open(os.path.join(bench, "configs", "ecoli_pacbio.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(bench, "traffic", "pacbio_rescore.json")) as f:
+        tr = json.load(f)
+    s_world, s_pool = common.seeds(seed, 2)
+    world = worlds.make(cfg, s_world, d)
+    path = worlds.write_cli_config(cfg, world, 0, os.path.join(d, "out"))
+    configs, sections = load_config(path)
+    _s, _p, pacbio = prepare_read_sets({tr["library"]: sections[
+        tr["library"]]}, backend="device", device=str(device))
+    graph = load_lastgraph(configs["graph"])
+    start = starting_paths_from_config(
+        configs, graph, AssemblySettings.from_config(configs),
+        write_outputs=False)
+    prepare_reads([], [], pacbio, graph)
+    pool = worlds.walk_pool(np.random.default_rng(s_pool), world, start, tr)
+    return graph, pacbio[0][1], pool
+
+
+def seed_batches(rs, graph, pool):
+    """The seed lookup's batch (seqs, rids) of each walk set's precompute
+    from an empty cache, as a ``pacbio.rescore`` request makes it."""
+    got = []
+    lookup = rs._seed_hits
+
+    def recorded(seqs, rids):
+        got.append((seqs, rids))
+        return lookup(seqs, rids)
+
+    rs._seed_hits = recorded
+    try:
+        for walks in pool:
+            rs.aligment_cache = {}
+            rs.precompute_ranges_for_paths(graph, walks)
+    finally:
+        del rs._seed_hits
+    return got
+
+
+def seeds_bound(seq_len, seg_row, seg_len, n_hits):
+    """The seed pass's bound: what the function itself must move, over
+    HBM_BPS.  Each distinct resident row read once (its read's bases; a
+    row looked up in several ranges counts once), the walk bases read
+    once, the hits (8 bytes) and the segment offsets (8 bytes, n_seg + 1)
+    written.  The sorted index (8 bytes a walk k-mer) is the kernels' own
+    intermediate and fits in L2, so it is left out."""
+    rows = dict(zip(np.asarray(seg_row).tolist(),
+                    np.asarray(seg_len).tolist()))
+    nbytes = int(sum(rows.values())) + seq_len + 8 * n_hits + \
+        8 * (len(seg_len) + 1)
+    return {"bound_ms": nbytes / HBM_BPS * 1e3, "bytes": nbytes,
+            "distinct_rows": len(rows), "bound_by": "bytes"}
+
+
+def seed_launches(batches):
+    """The launches of each seed kernel that the precomputes recorded in
+    ``batches`` (seed_batches' (seqs, rids)) must make: one batch each
+    with a query k-mer and a walk k-mer, and in it one keys, count, scan
+    and expand launch, ``passes`` scatters and ``passes - 1`` histograms,
+    ``passes`` the 8-bit digits of a 26-bit k-mer under its range."""
+    from gaml_tpu_torch.align.longread import SEED_K
+
+    want = dict.fromkeys(("seeds_keys", "seeds_hist", "seeds_scatter",
+                          "seeds_count", "seeds_scan", "seeds_expand"), 0)
+    for seqs, rids in batches:
+        if not any(rids) or not any(len(x) >= SEED_K for x in seqs):
+            continue
+        passes = -(-(2 * SEED_K + (len(seqs) - 1).bit_length()) // 8)
+        for k in ("seeds_keys", "seeds_count", "seeds_scan",
+                  "seeds_expand"):
+            want[k] += 1
+        want["seeds_scatter"] += passes
+        want["seeds_hist"] += passes - 1
+    return want
+
+
+def phase_seeds(device, seed=1181783497, reps=5):
+    """The long-read seed lookup at the ``pacbio.rescore`` cell's shapes:
+    each walk set's batch (every range of its precompute, every anchored
+    read on both strands) through the kernels (csrc/seeds.cu), their plain
+    torch version on the card and the host index the card route replaces
+    (its packed read k-mers warm, as between requests); the three hit
+    lists equal; wall ms a batch (median of ``reps``, each ending in the
+    read-back), the kernels' device ms (torch.profiler), the bound, the
+    launches a batch.  The precomputes themselves (the read set's entry
+    point) must launch the kernels once a walk set (seed_launches).  Then
+    the smallest range of the start walks alone, the size an anneal move's
+    miss has, the same three ways."""
+    from gaml_tpu_torch.ops import seeds_device
+
+    with tempfile.TemporaryDirectory(prefix="gaml_smoke_seeds_") as d:
+        t0 = time.perf_counter()
+        graph, rs, pool = ecoli_pacbio_world(d, device, seed)
+        t_world = time.perf_counter() - t0
+        zero_launches(seeds_device.LAUNCHES)
+        batches = seed_batches(rs, graph, pool)
+        ran = dict(seeds_device.LAUNCHES)
+    want = seed_launches(batches)
+    check(len(batches) == len(pool) and want["seeds_keys"] == len(pool),
+          f"{len(batches)} seed batches of {want['seeds_keys']} with "
+          f"queries from {len(pool)} walk sets")
+    check(ran == want, f"the precomputes launched the seed kernels "
+          f"{ran}, not {want}")
+    eng = rs._seed_engine()
+    check(eng is not None, "the read set on the card has no resident rows")
+    ws = seeds_device.Workspace()
+    smallest = min((len(s), i) for i, (s, r) in enumerate(
+        zip(*batches[0])) if r)[1]
+    cases = [(f"walk set {k}", seqs, rids)
+             for k, (seqs, rids) in enumerate(batches)]
+    cases.append(("one small range", [batches[0][0][smallest]],
+                  [batches[0][1][smallest]]))
+    out = []
+    for name, seqs, rids in cases:
+        segs = [(rid + strand * eng.n_reads, i, len(rs.read_seq[rid]))
+                for i, rr in enumerate(rids) for rid in rr
+                for strand in (0, 1)]
+        seg_row, seg_range, seg_len = (np.array(c, dtype=np.int64)
+                                       for c in zip(*segs))
+        args = (np.concatenate(seqs), [len(x) for x in seqs], seg_row,
+                seg_range, seg_len)
+
+        def kernel():
+            return seeds_device.seed_hits(eng.rows, *args, ws)
+
+        def plain():
+            return seeds_device.seed_hits_plain(eng.rows, *args)
+
+        def host():
+            return rs._seed_hits_host(seqs, rids)
+
+        zero_launches(seeds_device.LAUNCHES)
+        got = kernel()
+        launches = sum(seeds_device.LAUNCHES.values())
+        want = plain()
+        check(np.array_equal(got[0], want[0]) and
+              np.array_equal(got[1], want[1]),
+              f"{name}: the seed kernels differ from their plain version")
+        hits_host, n_host = host()
+        flat = [h for per in hits_host for pair in per for h in pair]
+        check(n_host == len(got[1]) and len(flat) == len(seg_len) and all(
+            np.array_equal(t, got[1][a:b, 0]) and
+            np.array_equal(q, got[1][a:b, 1])
+            for (t, q), a, b in zip(flat, got[0][:-1], got[0][1:])),
+            f"{name}: the seed kernels differ from the host index")
+        kern_ms = timer(device, kernel, reps, host_clock=True)
+        plain_ms = timer(device, plain, reps, host_clock=True)
+        host_ms = timer(device, host, max(reps // 2, 1), host_clock=True)
+        _n, dev = device_profile(device, kernel, reps,
+                                 kernels=r"seeds_\w+?_kernel")
+        kern_dev = sum(v for k, v in dev.items() if k.startswith("seeds_"))
+        kstart, _rb, qstart = seeds_device.layout(args[1], seg_len)
+        bound = seeds_bound(len(args[0]), seg_row, seg_len, len(got[1]))
+        res = {"case": name, "ranges": len(seqs), "segments": len(seg_len),
+               "walk_kmers": int(kstart[-1]), "query_kmers": int(qstart[-1]),
+               "hits": len(got[1]), "card_ms": kern_ms,
+               "device_ms": dev or None, "kernels_device_ms": kern_dev,
+               "plain_ms": plain_ms, "host_ms": host_ms,
+               "launches": launches, **bound,
+               "share_of_bound_pct": (100 * bound["bound_ms"] / kern_dev
+                                      if kern_dev else None)}
+        print("  seeds " + json.dumps(res), flush=True)
+        out.append(res)
+    sync(device)
+    return {"world_s": t_world, "precompute_launches": ran, "cases": out}
+
+
+def seeds_main():
+    """``chip_smoke.py --seeds``: the card, the build, phase 6b and the
+    PacBio anneal of phase 7 (the CLI's seed lookups on the kernels)."""
+    import torch
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    usage = run_phase("0 card", phase_card)
+    res = run_phase("6b seed lookup", phase_seeds, device)
+    with tempfile.TemporaryDirectory(prefix="gaml_smoke_pb_") as d_pb:
+        genome = write_pacbio_world(d_pb)
+        pb = run_phase("7 pacbio anneal", phase_pacbio_anneal, device, d_pb,
+                       genome)
+    print(json.dumps({"seeds": res, "anneal_seed_launches":
+                      pb["seed_launches"], "kernels": {
+                          k: usage[k] for k in SEEDS_KERNELS}}), flush=True)
+    return 0
+
+
 def write_pacbio_config(d, name, iterations):
     cfg = os.path.join(d, f"{name}.cfg")
     with open(cfg, "w") as f:
@@ -1847,18 +2061,23 @@ def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
     against the port's CLI on the native host route, both from the same
     world and config seed, held to assembly_bound."""
     from gaml_tpu_torch.core import dna
+    from gaml_tpu_torch.ops import seeds_device
 
     truth = dna.decode_seq(genome)
     nat_tr, nat_wall = native_pacbio_run(d, iterations, timeout)
 
     out, summary, dev_wall, busy, _span, _moves = cli_in_process(
         device, d, write_pacbio_config(d, "dev", iterations), [])
+    seeds_ran = dict(seeds_device.LAUNCHES)  # set to 0 by the call
     launches = summary["launches"]["banded_forward"]
     dev_tr = trace(out)
     check(len(dev_tr) >= iterations and len(nat_tr) >= iterations,
           f"short traces: {len(dev_tr)} / {len(nat_tr)} itnum lines")
     check(device.type != "cuda" or launches > 0,
           f"K5 was not launched by the anneal: {summary}")
+    check(device.type != "cuda" or seeds_ran["seeds_count"] > 0,
+          f"the seed kernels were not launched by the anneal: "
+          f"{seeds_ran}")
     check(summary["pacbio_cells"].get(route(device), 0) > 0,
           f"no forward-DP cell on {device}: {summary}")
     best_dev, best_nat = float(dev_tr[-1].split()[9]), \
@@ -1873,7 +2092,7 @@ def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
            "best_prob": best_dev, "nat_best_prob": best_nat,
            "quality": q_dev, "nat_quality": nat["quality"],
            "pacbio_cells": summary["pacbio_cells"], "launches": launches,
-           "device_busy_ms": busy,
+           "seed_launches": seeds_ran, "device_busy_ms": busy,
            "device_busy_share": None if busy is None
            else busy / 1e3 / dev_wall,
            "vs_native_trace": "identical" if diff is None else
@@ -1883,17 +2102,24 @@ def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
 
 
 # ------------------------------------------------------------------ phase 8
-def reset_launches():
-    """Every launch count of the band and candgen kernels, and the call
-    counts of query_plain and of the host pass gen_candidates, set to 0;
-    returns the band kernels'."""
-    from gaml_tpu_torch.align import aligner
-    from gaml_tpu_torch.ops import candgen_cuda, candgen_device, extend_cuda
+def zero_launches(*counts):
+    """Every count of each dict in ``counts`` set to 0."""
+    for c in counts:
+        for k in c:
+            c[k] = 0
 
-    for counts in (extend_cuda.LAUNCHES, candgen_cuda.LAUNCHES,
-                   candgen_device.PLAIN_CALLS, aligner.HOST_CALLS):
-        for k in counts:
-            counts[k] = 0
+
+def reset_launches():
+    """Every launch count of the band, candgen and seed kernels, and the
+    call counts of query_plain and of the host pass gen_candidates, set to
+    0; returns the band kernels'."""
+    from gaml_tpu_torch.align import aligner
+    from gaml_tpu_torch.ops import candgen_cuda, candgen_device, \
+        extend_cuda, seeds_device
+
+    zero_launches(extend_cuda.LAUNCHES, candgen_cuda.LAUNCHES,
+                  candgen_device.PLAIN_CALLS, aligner.HOST_CALLS,
+                  seeds_device.LAUNCHES)
     return extend_cuda.LAUNCHES
 
 
@@ -3318,6 +3544,8 @@ def main():
         return rank_main(sys.argv[2])
     if sys.argv[1:2] == ["--candgen-split"]:
         return candgen_split_main(sys.argv[2:] or ("plain", "kernel"))
+    if sys.argv[1:2] == ["--seeds"]:
+        return seeds_main()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     card = run_phase("0 card", phase_card)
@@ -3336,6 +3564,7 @@ def main():
         fwd = run_phase("5 K5", phase_forward_kernel, device)
         genome = write_pacbio_world(d_pb)
         run_phase("6 pacbio scoring", phase_pacbio_scoring, device, d_pb)
+        run_phase("6b seed lookup", phase_seeds, device)
         pb = run_phase("7 pacbio anneal", phase_pacbio_anneal, device, d_pb,
                        genome)
         exact = run_phase("8 exact DP", phase_exact, device)

@@ -20,7 +20,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("band_dp.cu", "banded_forward.cu", "candgen.cu", "rescore.cu")
+SOURCES = ("band_dp.cu", "banded_forward.cu", "candgen.cu", "rescore.cu",
+           "seeds.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -139,6 +140,15 @@ def load():
         lib.gaml_rescore_dedup_sums.restype = i
         lib.gaml_rescore_reduce.argtypes = [p, p, ll, i, p, d, d, d] + [p] * 5
         lib.gaml_rescore_reduce.restype = i
+        for name in ("sort_tile", "query_tile"):
+            getattr(lib, "gaml_seeds_" + name).argtypes = []
+            getattr(lib, "gaml_seeds_" + name).restype = i
+        lib.gaml_seeds_index.argtypes = [p, p, p, i, i, i] + [p] * 9
+        lib.gaml_seeds_index.restype = i
+        lib.gaml_seeds_count.argtypes = [p, ll, p, p, p, i, ll] + [p] * 8
+        lib.gaml_seeds_count.restype = i
+        lib.gaml_seeds_expand.argtypes = [p, i, ll] + [p] * 5 + [ll, p, p, p]
+        lib.gaml_seeds_expand.restype = i
         build_info["path"] = so
         _lib = lib
         return lib

@@ -32,6 +32,13 @@ under "cuda", "torch" and "native".  With ``forward_dispatch`` set on
 the read set (ProbCalculator.enable_sharded_pacbio, the JAX package's
 mesh forward) every batch, whatever its size, runs on the same engine and
 its cells count under "mesh", as in the JAX package.
+
+The seed lookup of a precompute's ranges is routed by the same device:
+on a CUDA device whose engine holds the resident read rows, every
+(range, read, strand) query of the batch runs in the seed kernels
+(ops/seeds_device.py, csrc/seeds.cu), read from those rows; on the CPU,
+or where the rows are staged densely, each range runs through its host
+index (align/longread.py::SortedKmerIndex).  Both give the same hits.
 """
 from __future__ import annotations
 
@@ -421,7 +428,7 @@ class PacbioReadSet:
         """The window half of GetReadProbabilitiesSlow's front
         (graph.cc:2724-2742): reserve the sub-walk's cache windows, noting
         those another fill reserved first (dont_save).  Returns the prep
-        that ``_chain_jobs`` completes."""
+        that ``_chain_preps`` completes."""
         path = list(path)
         begins, ends = walk_bounds(graph, path)
         subpath_starts: Dict[Tuple[int, ...], int] = {}
@@ -454,53 +461,36 @@ class PacbioReadSet:
             return list(range(self.reads_num))
         return sorted(read_filter)
 
-    def _chain_jobs(self, graph, prep: dict) -> dict:
-        """The aligner half of GetReadProbabilitiesSlow's front: spell the
-        reserved sub-walk, seed and chain its anchored reads and build the
-        forward-DP job list, everything but the device call, so several
-        ranges can share one batch.  Fills ``prep``'s seq, jobs and meta."""
-        seq = self._spell(graph, prep["path"])
+    def _chain_preps(self, graph, preps) -> list:
+        """The aligner half of GetReadProbabilitiesSlow's front for several
+        reserved ranges: spell each sub-walk, look up its anchored reads'
+        seed hits on both strands (``_seed_hits``, every range in one
+        batch), chain them and build the forward-DP job list, everything
+        but the device call, so the ranges can share one batch.  Fills each
+        prep's seq, jobs and meta; chain emission order matches
+        align_long_read exactly."""
         # a process of a group runs only its own reads' jobs
         # (parallel/pacbio_sharded.py)
         lo, hi = getattr(self, "read_range", (0, self.reads_num))
-
-        jobs = []
-        meta = []
-        from ..align.longread import SortedKmerIndex, chain_hits
-
-        seq_index = SortedKmerIndex(seq) if len(seq) >= SEED_K else None
-        rids = [rid for rid in self._read_filter(prep["path"])
-                if lo <= rid < hi and len(self.read_seq[rid]) >= SEED_K]
-        if seq_index is not None and rids:
-            # one batched index query for all (read, strand) pairs, with
-            # per-read packed k-mers and revcomps cached across rescores;
-            # chain emission order matches align_long_read exactly
-            kcache = getattr(self, "_seed_kmer_cache", None)
-            if kcache is None:
-                kcache = self._seed_kmer_cache = {}
-            from ..index.maxhash import pack_kmers
-
-            qks = []
-            per_read = []
-            for rid in rids:
-                entry = kcache.get(rid)
-                if entry is None:
-                    read = self.read_seq[rid]
-                    rc = dna.revcomp(read)
-                    entry = (read, rc, pack_kmers(read, SEED_K),
-                             pack_kmers(rc, SEED_K))
-                    kcache[rid] = entry
-                per_read.append(entry)
-                qks.append(entry[2])
-                qks.append(entry[3])
-            batch = seq_index.hits_batch_kmers(qks)
-            for i, rid in enumerate(rids):
-                read, rc, _kf, _kr = per_read[i]
+        seqs, rids = [], []
+        for prep in preps:
+            seq = self._spell(graph, prep["path"])
+            seqs.append(seq)
+            rids.append([rid for rid in self._read_filter(prep["path"])
+                         if lo <= rid < hi and
+                         len(self.read_seq[rid]) >= SEED_K]
+                        if len(seq) >= SEED_K else [])
+        with span("pacbio.seeds"):
+            hits = self._seed_hits(seqs, rids)
+        for prep, seq, range_rids, range_hits in zip(preps, seqs, rids, hits):
+            jobs = []
+            meta = []
+            for rid, strands in zip(range_rids, range_hits):
+                read, rc = self._strands(rid)
                 chains = []
-                for strand, q in ((0, read), (1, rc)):
-                    tpos, qpos = batch[2 * i + strand]
-                    hits = list(zip(tpos.tolist(), qpos.tolist()))
-                    for ch in chain_hits(hits, min_seeds=3):
+                for strand, (tpos, qpos) in enumerate(strands):
+                    hits_rs = list(zip(tpos.tolist(), qpos.tolist()))
+                    for ch in chain_hits(hits_rs, min_seeds=3):
                         chains.append(ch._replace(strand=strand))
                 chains.sort(key=lambda c: -c.n_seeds)
                 for chain in chains:
@@ -510,16 +500,116 @@ class PacbioReadSet:
                     # RESIDENT packed row instead of shipping the bytes
                     jobs.append((q, centers, rid, chain.strand))
                     meta.append((rid, chain))
-        prep.update(seq=seq, jobs=jobs, meta=meta)
-        return prep
+            prep.update(seq=seq, jobs=jobs, meta=meta)
+        return preps
+
+    def _strands(self, rid: int):
+        """(read, reverse complement) of ``rid``, kept across rescores."""
+        cache = getattr(self, "_strand_cache", None)
+        if cache is None:
+            cache = self._strand_cache = {}
+        entry = cache.get(rid)
+        if entry is None:
+            read = self.read_seq[rid]
+            entry = cache[rid] = (read, dna.revcomp(read))
+        return entry
+
+    def _seed_engine(self):
+        """The forward engine whose resident read rows the seed kernels
+        read: on a CUDA device when the rows are resident; else None (the
+        host index)."""
+        if self.device.type != "cuda":
+            return None
+        eng = self._ensure_fwd_engine()
+        return eng if eng.rows is not None else None
+
+    def _seed_hits(self, seqs, rids) -> list:
+        """Exact k-mer seed hits of each range's reads on both strands:
+        out[i][k] = ((tpos, qpos) forward, (tpos, qpos) reverse complement)
+        of read rids[i][k] against seqs[i], as
+        SortedKmerIndex(seqs[i]).hits would give them.  On a CUDA device
+        with resident read rows every range's queries run as one batch of
+        the seed kernels (ops/seeds_device.py), read from the rows; else
+        each range through the host index, its reads' packed k-mers cached
+        across rescores.  Counters ``pacbio.seed_queries`` (query k-mers),
+        ``pacbio.seed_hits`` and ``pacbio.seed_device_batches`` or
+        ``pacbio.seed_native_batches`` (one a batch with any query)."""
+        n_q = 2 * sum(len(self.read_seq[rid]) - SEED_K + 1
+                      for range_rids in rids for rid in range_rids)
+        if not n_q:
+            return [[] for _ in seqs]
+        eng = self._seed_engine()
+        if eng is None:
+            count("pacbio.seed_native_batches")
+            out, n_hits = self._seed_hits_host(seqs, rids)
+        else:
+            from ..ops.seeds_device import Workspace, seed_hits
+
+            count("pacbio.seed_device_batches")
+            segs = [(rid + strand * eng.n_reads, i,
+                     len(self.read_seq[rid]))
+                    for i, range_rids in enumerate(rids)
+                    for rid in range_rids for strand in (0, 1)]
+            seg_row, seg_range, seg_len = (np.array(c, dtype=np.int64)
+                                           for c in zip(*segs))
+            ws = getattr(self, "_seed_ws", None)
+            if ws is None:
+                ws = self._seed_ws = Workspace()
+            seg_off, hits = seed_hits(
+                eng.rows, np.concatenate(seqs), [len(s) for s in seqs],
+                seg_row, seg_range, seg_len, ws)
+            n_hits = len(hits)
+            tpos, qpos = hits[:, 0], hits[:, 1]
+            bounds = seg_off.tolist()
+            out, s = [], 0  # segments in (range, read, strand) order
+            for range_rids in rids:
+                per_read = []
+                for _rid in range_rids:
+                    fwd, rev = (slice(bounds[j], bounds[j + 1])
+                                for j in (s, s + 1))
+                    per_read.append(((tpos[fwd], qpos[fwd]),
+                                     (tpos[rev], qpos[rev])))
+                    s += 2
+                out.append(per_read)
+        count("pacbio.seed_queries", n_q)
+        count("pacbio.seed_hits", n_hits)
+        return out
+
+    def _seed_hits_host(self, seqs, rids):
+        """``_seed_hits`` through one SortedKmerIndex a range (one batched
+        query for all its (read, strand) pairs): (hits, their number)."""
+        from ..align.longread import SortedKmerIndex
+        from ..index.maxhash import pack_kmers
+
+        kcache = getattr(self, "_seed_kmer_cache", None)
+        if kcache is None:
+            kcache = self._seed_kmer_cache = {}
+        out, n_hits = [], 0
+        for seq, range_rids in zip(seqs, rids):
+            if not range_rids:
+                out.append([])
+                continue
+            qks = []
+            for rid in range_rids:
+                entry = kcache.get(rid)
+                if entry is None:
+                    read, rc = self._strands(rid)
+                    entry = kcache[rid] = (pack_kmers(read, SEED_K),
+                                           pack_kmers(rc, SEED_K))
+                qks.extend(entry)
+            batch = SortedKmerIndex(seq).hits_batch_kmers(qks)
+            n_hits += sum(len(t) for t, _q in batch)
+            out.append([(batch[2 * k], batch[2 * k + 1])
+                        for k in range(len(range_rids))])
+        return out, n_hits
 
     def _slow_prepare(self, graph, path: Sequence[int],
                       save_to_cache: bool = True):
         """First half of GetReadProbabilitiesSlow (graph.cc:2650-2795):
         reserve the sub-walk's cache windows, then seed and chain its
         anchored reads into forward-DP jobs."""
-        return self._chain_jobs(
-            graph, self._reserve_windows(graph, path, save_to_cache))
+        return self._chain_preps(
+            graph, [self._reserve_windows(graph, path, save_to_cache)])[0]
 
     def _slow_apply(self, prep, logprobs):
         """Second half of GetReadProbabilitiesSlow: record positions and
@@ -568,7 +658,7 @@ class PacbioReadSet:
             reserved = [self._reserve_windows(graph, path[a:b + 1])
                         for a, b in merge_ranges(missing)]
         with span("pacbio.chain"):
-            return [self._chain_jobs(graph, r) for r in reserved]
+            return self._chain_preps(graph, reserved)
 
     def _run_preps(self, preps) -> None:
         """Run every prep's forward-DP jobs in ONE device batch (the kernel
@@ -647,7 +737,7 @@ class PacbioReadSet:
                 reserved.extend(self._reserve_windows(graph, path[a:b + 1])
                                 for a, b in merge_ranges(missing))
         with span("pacbio.chain"):
-            preps = [self._chain_jobs(graph, r) for r in reserved]
+            preps = self._chain_preps(graph, reserved)
         self._run_preps(preps)
 
     # --------------------------------------------------- cached positions
