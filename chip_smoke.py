@@ -146,6 +146,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -635,7 +636,6 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None,
     import torch
 
     from gaml_tpu_torch.native import query_windows_batch
-    from gaml_tpu_torch.ops import extend_cuda
     from gaml_tpu_torch.ops.candgen_device import DeviceCandGen
     from gaml_tpu_torch.ops.rescore_device import DeviceRescorer
 
@@ -663,11 +663,11 @@ def phase_rescore(device, genome_len, n_reads, reps=10, launches=None,
           f"the rescore's candgen did not run the kernel once: {main}")
     cand["launches"] = main["candgen_runs"]
     if launches is not None:
-        launches.update(extend_cuda.LAUNCHES)
+        launches.update(main)
         check(device.type != "cuda" or (
-            launches["extend_exact"] == 1 and launches["swar_cost"] ==
-            launches["swar_cost_accept"] == launches["dp_rows_exact"] == 0),
-            f"the rescore did not make one exact launch: {launches}")
+            main["extend_exact"] == 1 and main["swar_cost"] ==
+            main["swar_cost_accept"] == main["dp_rows_exact"] == 0),
+            f"the rescore did not make one exact launch: {main}")
     ms = timer(device, lambda: dev.rescore([genome], cap, **args), reps,
                host_clock=True)
 
@@ -781,9 +781,8 @@ def score_stage(device, dev, c, ext, args, reps):
            "kept": len(idx)}
     if device.type != "cuda":
         return res
-    before = dict(rescore_cuda.LAUNCHES)
-    scores, zeros, kept = rescore_cuda.score_kernel(dev, c, ext, **args)
-    launched = {k: v - before[k] for k, v in rescore_cuda.LAUNCHES.items()}
+    (scores, zeros, kept), launched = launches_of(
+        lambda: rescore_cuda.score_kernel(dev, c, ext, **args))
     rel = abs(float(scores[0]) - want[0]) / abs(want[0])
     check(kept == len(idx) and int(zeros[0]) == want[1] and rel <= 1e-13,
           f"score stage: kernels ({scores[0]}, {zeros[0]}, {kept} kept) vs "
@@ -842,12 +841,12 @@ def rescore_jobs(device, dev, genome, cap, args, k, single, reps):
 
 # --------------------------------------------- candgen: the two routes
 def all_launches():
-    """A copy of every launch count (band kernels, candgen kernels) and
-    of query_plain's call count."""
-    from gaml_tpu_torch.ops import candgen_cuda, candgen_device, extend_cuda
+    """A copy of the one launch-count store (every kernel's launches and
+    the calls of query_plain and gen_candidates; a name never counted
+    reads 0)."""
+    from gaml_tpu_torch.utils.metrics import LAUNCHES
 
-    return {**extend_cuda.LAUNCHES, **candgen_cuda.LAUNCHES,
-            **candgen_device.PLAIN_CALLS}
+    return LAUNCHES.copy()
 
 
 def same_candidates(got, want, what):
@@ -926,12 +925,11 @@ def candgen_against_plain(device, gen, seqs, reps):
 
 
 def launches_of(fn):
-    """(fn(), the candgen kernels' launches it made, by kernel)."""
-    from gaml_tpu_torch.ops import candgen_cuda
-
-    before = dict(candgen_cuda.LAUNCHES)
+    """(fn(), the launches and counted calls it made, by name: a name it
+    did not count reads 0)."""
+    before = all_launches()
     out = fn()
-    return out, {k: v - before[k] for k, v in candgen_cuda.LAUNCHES.items()}
+    return out, all_launches() - before
 
 
 def forced_query(gen, staged, split=None, **route):
@@ -1322,9 +1320,13 @@ def run_cli(module, cfg, extra, timeout):
 
 
 def summary_of(text):
-    """The CLI's device-work summary (its last line) as a dict."""
-    return json.loads(text.strip().splitlines()[-1]
-                      .split("device work: ", 1)[1])
+    """The CLI's device-work summary (its last line) as a dict, its
+    launches a Counter (a name the line leaves out was never counted and
+    reads 0)."""
+    summary = json.loads(text.strip().splitlines()[-1]
+                         .split("device work: ", 1)[1])
+    summary["launches"] = Counter(summary["launches"])
+    return summary
 
 
 def trace(text):
@@ -1831,10 +1833,9 @@ def phase_seeds(device, seed=1181783497, reps=5):
         t0 = time.perf_counter()
         graph, rs, pool = ecoli_pacbio_world(d, device, seed)
         t_world = time.perf_counter() - t0
-        zero_launches(seeds_device.LAUNCHES)
-        batches = seed_batches(rs, graph, pool)
-        ran = dict(seeds_device.LAUNCHES)
+        batches, ran = launches_of(lambda: seed_batches(rs, graph, pool))
     want = seed_launches(batches)
+    ran = {k: ran[k] for k in want}
     check(len(batches) == len(pool) and want["seeds_keys"] == len(pool),
           f"{len(batches)} seed batches of {want['seeds_keys']} with "
           f"queries from {len(pool)} walk sets")
@@ -1868,9 +1869,8 @@ def phase_seeds(device, seed=1181783497, reps=5):
         def host():
             return rs._seed_hits_host(seqs, rids)
 
-        zero_launches(seeds_device.LAUNCHES)
-        got = kernel()
-        launches = sum(seeds_device.LAUNCHES.values())
+        got, launched = launches_of(kernel)
+        launches = sum(launched.values())
         want = plain()
         check(np.array_equal(got[0], want[0]) and
               np.array_equal(got[1], want[1]),
@@ -1961,12 +1961,9 @@ def cli_in_process(device, d, cfg, extra, env=None, window=None):
     import torch
 
     from gaml_tpu_torch import cli
-    from gaml_tpu_torch.ops import forward_cuda
     from gaml_tpu_torch.optimize.anneal import Optimizer
 
     reset_launches()
-    for k in forward_cuda.LAUNCHES:
-        forward_cuda.LAUNCHES[k] = 0
     buf = io.StringIO()
     acts = [torch.profiler.ProfilerActivity.CUDA
             if device.type == "cuda" else torch.profiler.ProfilerActivity.CPU]
@@ -2061,14 +2058,14 @@ def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
     against the port's CLI on the native host route, both from the same
     world and config seed, held to assembly_bound."""
     from gaml_tpu_torch.core import dna
-    from gaml_tpu_torch.ops import seeds_device
 
     truth = dna.decode_seq(genome)
     nat_tr, nat_wall = native_pacbio_run(d, iterations, timeout)
 
     out, summary, dev_wall, busy, _span, _moves = cli_in_process(
         device, d, write_pacbio_config(d, "dev", iterations), [])
-    seeds_ran = dict(seeds_device.LAUNCHES)  # set to 0 by the call
+    seeds_ran = {k: v for k, v in summary["launches"].items()
+                 if k.startswith("seeds_")}
     launches = summary["launches"]["banded_forward"]
     dev_tr = trace(out)
     check(len(dev_tr) >= iterations and len(nat_tr) >= iterations,
@@ -2102,25 +2099,14 @@ def phase_pacbio_anneal(device, d, genome, iterations=400, timeout=600):
 
 
 # ------------------------------------------------------------------ phase 8
-def zero_launches(*counts):
-    """Every count of each dict in ``counts`` set to 0."""
-    for c in counts:
-        for k in c:
-            c[k] = 0
-
-
 def reset_launches():
-    """Every launch count of the band, candgen and seed kernels, and the
-    call counts of query_plain and of the host pass gen_candidates, set to
-    0; returns the band kernels'."""
-    from gaml_tpu_torch.align import aligner
-    from gaml_tpu_torch.ops import candgen_cuda, candgen_device, \
-        extend_cuda, seeds_device
+    """Every count of the one launch-count store set to 0 (every kernel's
+    launches, the calls of query_plain and gen_candidates); returns the
+    store."""
+    from gaml_tpu_torch.utils.metrics import LAUNCHES
 
-    zero_launches(extend_cuda.LAUNCHES, candgen_cuda.LAUNCHES,
-                  candgen_device.PLAIN_CALLS, aligner.HOST_CALLS,
-                  seeds_device.LAUNCHES)
-    return extend_cuda.LAUNCHES
+    LAUNCHES.clear()
+    return LAUNCHES
 
 
 def exact_against_plain(device, args, reps):
@@ -2947,8 +2933,7 @@ def phase_device_scorers(device, d, d_pb, pb_genome, anneal=None, pb=None,
     ("mesh"), held to phase 7's native route by assembly_bound.  Then
     sharded_single_end_score on phase 9's candidates against
     SingleEndModel's score (within 1e-12, zero reads equal).  Without the
-    earlier phases' results (chip_ab.py) their reference runs are made
-    here."""
+    earlier phases' results their reference runs are made here."""
     from gaml_tpu_torch.core import dna
     from gaml_tpu_torch.parallel import sharded
 
@@ -3270,8 +3255,8 @@ def phase_distributed(device, d, d_pb, pb_genome, scorers, models,
           f"{merged[1]} {se[1]} vs {merged[0]} {se[0]}")
     for rep in two + one:
         check(device.type != "cuda" or (
-              rep["launches"]["extend_exact_staged"] > 0 and
-              rep["launches"]["banded_forward"] > 0),
+              rep["launches"].get("extend_exact_staged", 0) > 0 and
+              rep["launches"].get("banded_forward", 0) > 0),
               f"dry run rank {rep['rank']} of {rep['world']}: launches "
               f"{rep['launches']}")
         count(rep["launches"])
@@ -3311,7 +3296,8 @@ def phase_distributed(device, d, d_pb, pb_genome, scorers, models,
                                its, None, p11["ref"]["trace"], timeout)
     for r in out["ranks"]:
         check(set(r["pacbio_cells"]) == {"mesh"} and (
-              device.type != "cuda" or r["launches"]["banded_forward"] > 0),
+              device.type != "cuda" or
+              r["launches"].get("banded_forward", 0) > 0),
               f"--pacbio-device world 2: cells {r['pacbio_cells']}, "
               f"launches {r['launches']}")
         count(r["launches"])
@@ -3357,8 +3343,8 @@ def phase_distributed(device, d, d_pb, pb_genome, scorers, models,
               f"({rep['score']}, {rep['zero_reads']}) vs the model "
               f"({w['score']}, {w['zero_reads']})")
         check(device.type != "cuda" or (
-              rep["launches"]["extend_exact_staged"] == 1 and
-              rep["launches"]["extend_exact"] == 0),
+              rep["launches"].get("extend_exact_staged", 0) == 1 and
+              rep["launches"].get("extend_exact", 0) == 0),
               f"sharded_single_end_score rank {rep['rank']} launches "
               f"{rep['launches']}")
         count(rep["launches"])

@@ -40,6 +40,7 @@ import numpy as np
 
 from ..core import dna
 from ..index.maxhash import K_INDEX_KMER, ReadIndexMaxHash
+from ..utils.metrics import LAUNCHES
 from . import bfs
 
 K_MIN_SUBPATH_LENGTH = 300  # reference kMinSubpathLength (graph.cc:27)
@@ -199,12 +200,6 @@ class _ReadCache:
         return hit
 
 
-# calls of gen_candidates, the host candidate pass: the device backend
-# runs it only for the trivial index and align_seq, so a max-hash read
-# set's batches leave this at 0
-HOST_CALLS = {"gen_candidates": 0}
-
-
 def gen_candidates(index: ReadIndexMaxHash, read_seqs: Dict[int, np.ndarray],
                    seq: np.ndarray,
                    read_cache: "_ReadCache" = None) -> List[Tuple[Candidate, np.ndarray]]:
@@ -213,7 +208,10 @@ def gen_candidates(index: ReadIndexMaxHash, read_seqs: Dict[int, np.ndarray],
     affects which duplicate wins the (position, read_id) dedup."""
     from ..index.maxhash import ReadIndexMaxHash as _MH, pack_kmers
 
-    HOST_CALLS["gen_candidates"] += 1
+    # counted: the device backend runs the host candidate pass only for
+    # the trivial index and align_seq, so a max-hash read set's batches
+    # leave gen_candidates at 0
+    LAUNCHES["gen_candidates"] += 1
     cands = index.get_read_cands_with_poses(seq)
     if not cands:
         return []

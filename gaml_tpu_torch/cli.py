@@ -44,9 +44,11 @@ and the spans' calls, total and self seconds and parents, the counters
 ``DIR/rank<r>``.
 
 The last line of output reports the device work: window batches,
-candidates, PacBio forward-DP cells by route, kernel launches (with the
-calls of query_plain and of the host candidate pass gen_candidates), the
-anneal's wall seconds, and this process's rank and the world's size.
+candidates, PacBio forward-DP cells by route, kernel launches (every
+name counted in utils.metrics.LAUNCHES, the calls of query_plain and of
+the host candidate pass gen_candidates among them; a name left out was
+never counted), the anneal's wall seconds, and this process's rank and
+the world's size.
 """
 from __future__ import annotations
 
@@ -285,13 +287,9 @@ def run(args, device: str, rank: int = 0, world: int = 1) -> int:
             pacbio_cells[k] = pacbio_cells.get(k, 0) + v
     launches = {}
     if args.backend == "device" or pacbio:
-        from .align import aligner
-        from .ops import candgen_cuda, candgen_device, extend_cuda, \
-            forward_cuda, rescore_cuda
+        from .utils.metrics import LAUNCHES
 
-        launches = {**extend_cuda.LAUNCHES, **forward_cuda.LAUNCHES,
-                    **candgen_cuda.LAUNCHES, **rescore_cuda.LAUNCHES,
-                    **candgen_device.PLAIN_CALLS, **aligner.HOST_CALLS}
+        launches = dict(sorted(LAUNCHES.items()))
     print("device work: " + json.dumps({
         "device": device,
         "backend": args.backend,

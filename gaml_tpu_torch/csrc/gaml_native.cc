@@ -784,35 +784,6 @@ int64_t collect_positions_ptr(
   return total;
 }
 
-// Both mates' position collections in one call, run concurrently on two
-// OS threads (the collections are independent; all scratch state in
-// collect_positions_ptr is thread_local, outputs are disjoint buffers).
-void collect_positions_ptr2(
-    int32_t a_nw, const int64_t* a_wpos, const int64_t* a_wed,
-    const int64_t* a_wrid, const int64_t* a_wor, const int32_t* a_wlen,
-    const int32_t* a_wcur, const int32_t* a_wgrp, const int32_t* a_wctg,
-    int32_t a_filter, int32_t a_hint,
-    int32_t* a_orid, int64_t* a_ost, int32_t* a_ocnt, int32_t* a_opos,
-    int32_t* a_oed, int32_t* a_oor, int32_t* a_onr,
-    int32_t b_nw, const int64_t* b_wpos, const int64_t* b_wed,
-    const int64_t* b_wrid, const int64_t* b_wor, const int32_t* b_wlen,
-    const int32_t* b_wcur, const int32_t* b_wgrp, const int32_t* b_wctg,
-    int32_t b_filter, int32_t b_hint,
-    int32_t* b_orid, int64_t* b_ost, int32_t* b_ocnt, int32_t* b_opos,
-    int32_t* b_oed, int32_t* b_oor, int32_t* b_onr) {
-#pragma omp parallel sections
-  {
-#pragma omp section
-    collect_positions_ptr(a_nw, a_wpos, a_wed, a_wrid, a_wor, a_wlen,
-                          a_wcur, a_wgrp, a_wctg, a_filter, a_hint, a_orid,
-                          a_ost, a_ocnt, a_opos, a_oed, a_oor, a_onr);
-#pragma omp section
-    collect_positions_ptr(b_nw, b_wpos, b_wed, b_wrid, b_wor, b_wlen,
-                          b_wcur, b_wgrp, b_wctg, b_filter, b_hint, b_orid,
-                          b_ost, b_ocnt, b_opos, b_oed, b_oor, b_onr);
-  }
-}
-
 // Two-sided pair loop: intersect both mates' grouped position lists by
 // read id (two-pointer over ascending rids) and run the innie pair
 // products + events (reference graph.cc:1853-1892).

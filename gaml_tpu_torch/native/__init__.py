@@ -145,10 +145,6 @@ def get_lib():
         lib.collect_positions_ptr.argtypes = [ctypes.c_int32] + \
             [ctypes.c_void_p] * 8 + [ctypes.c_int32, ctypes.c_int32] + \
             [ctypes.c_void_p] * 6 + [ctypes.c_void_p]
-        lib.collect_positions_ptr2.restype = None
-        lib.collect_positions_ptr2.argtypes = ([ctypes.c_int32] +
-            [ctypes.c_void_p] * 8 + [ctypes.c_int32, ctypes.c_int32] +
-            [ctypes.c_void_p] * 7) * 2
         lib.paired_inc_pairs2.restype = ctypes.c_int64
         lib.paired_inc_pairs2.argtypes = \
             [ctypes.c_void_p] * 3 + [ctypes.c_int32] + [ctypes.c_void_p] * 3 + \
@@ -638,53 +634,6 @@ def collect_positions_ptr(staged, use_filter: bool = True, pool=None,
     nr = int(out_nreads[0])
     return (out_rid[:nr], out_start[:nr], out_cnt[:nr],
             out_pos, out_ed, out_or)
-
-
-def _collect_bufs(total, pool):
-    cap = max(1, int(total))
-    bufs = pool[0] if pool is not None and pool[0] is not None else None
-    if bufs is None or len(bufs[0]) < cap:
-        bufs = (np.empty(cap, dtype=np.int32), np.empty(cap, dtype=np.int64),
-                np.empty(cap, dtype=np.int32), np.empty(cap, dtype=np.int32),
-                np.empty(cap, dtype=np.int32), np.empty(cap, dtype=np.int32))
-        if pool is not None:
-            pool[0] = bufs
-    return bufs
-
-
-def collect_positions_ptr_pair(staged1, staged2, use_filter: bool = True,
-                               pool1=None, pool2=None, n_reads1: int = 0,
-                               n_reads2: int = 0):
-    """Both mates' collections in one native call, run concurrently on
-    two OS threads.  Returns (grouped1, grouped2), each identical to a
-    collect_positions_ptr result."""
-    lib = get_lib()
-    assert lib is not None
-    args = []
-    outs = []
-    for staged, pool, n_reads in ((staged1, pool1, n_reads1),
-                                  (staged2, pool2, n_reads2)):
-        (p_pos, p_ed, p_rid, p_or, w_len, w_curpos, w_group, w_ctg,
-         total, _keep) = staged
-        bufs = _collect_bufs(total, pool)
-        out_nreads = np.zeros(1, dtype=np.int32)
-        args += [len(w_len), p_pos.ctypes.data, p_ed.ctypes.data,
-                 p_rid.ctypes.data, p_or.ctypes.data, w_len.ctypes.data,
-                 w_curpos.ctypes.data, w_group.ctypes.data,
-                 w_ctg.ctypes.data, int(use_filter), int(n_reads),
-                 bufs[0].ctypes.data, bufs[1].ctypes.data,
-                 bufs[2].ctypes.data, bufs[3].ctypes.data,
-                 bufs[4].ctypes.data, bufs[5].ctypes.data,
-                 out_nreads.ctypes.data]
-        outs.append((bufs, out_nreads))
-    lib.collect_positions_ptr2(*args)
-    results = []
-    for bufs, out_nreads in outs:
-        nr = int(out_nreads[0])
-        out_rid, out_start, out_cnt, out_pos, out_ed, out_or = bufs
-        results.append((out_rid[:nr], out_start[:nr], out_cnt[:nr],
-                        out_pos, out_ed, out_or))
-    return results[0], results[1]
 
 
 def paired_inc_pairs2(g1, g2, rlen1_all, rlen2_all, match_pow1,

@@ -6,9 +6,13 @@ interface (no PyTorch headers, so a build takes seconds).
 The library lands in ``gaml_tpu_torch/_build`` under a name derived from
 the sources' content, so an edited source rebuilds and concurrent
 processes share one finished build.  Nothing here runs at import time.
+
+``launch`` is the one call of a kernel entry point ``gaml_<name>``;
+``check_tiles`` holds a wrapper's constants to its source's on first use.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib = None
+_tiles_checked = set()  # sources whose constants check_tiles has held
 # what the last load() did: library path, build seconds (0.0 when an
 # existing build was reused) and the compiler's output (-Xptxas -v)
 build_info = {"path": None, "seconds": None, "log": ""}
@@ -118,9 +123,6 @@ def load():
                                             p, i, i, ctypes.c_float,
                                             ctypes.c_float, p, p]
         lib.gaml_banded_forward.restype = i
-        for name in ("tile", "sort_tile", "block_max"):
-            getattr(lib, "gaml_candgen_" + name).argtypes = []
-            getattr(lib, "gaml_candgen_" + name).restype = i
         ll = ctypes.c_longlong
         lib.gaml_candgen_ws_words.argtypes = [i]
         lib.gaml_candgen_ws_words.restype = ll
@@ -131,18 +133,12 @@ def load():
         lib.gaml_candgen_runs.restype = i
         lib.gaml_candgen_sort.argtypes = [p, i, p, p, p] + [i] * 4 + [p] * 3
         lib.gaml_candgen_sort.restype = i
-        for name in ("tile", "reduce_tile", "reduce_threads"):
-            getattr(lib, "gaml_rescore_" + name).argtypes = []
-            getattr(lib, "gaml_rescore_" + name).restype = i
         d = ctypes.c_double
         lib.gaml_rescore_dedup_sums.argtypes = [p] * 7 + [ll, ll, d, d] + \
             [p] * 5
         lib.gaml_rescore_dedup_sums.restype = i
         lib.gaml_rescore_reduce.argtypes = [p, p, ll, i, p, d, d, d] + [p] * 5
         lib.gaml_rescore_reduce.restype = i
-        for name in ("sort_tile", "query_tile"):
-            getattr(lib, "gaml_seeds_" + name).argtypes = []
-            getattr(lib, "gaml_seeds_" + name).restype = i
         lib.gaml_seeds_index.argtypes = [p, p, p, i, i, i] + [p] * 9
         lib.gaml_seeds_index.restype = i
         lib.gaml_seeds_count.argtypes = [p, ll, p, p, p, i, ll] + [p] * 8
@@ -152,3 +148,38 @@ def load():
         build_info["path"] = so
         _lib = lib
         return lib
+
+
+def check_tiles(source: str, tiles: dict) -> None:
+    """Raise unless each ``gaml_<name>()`` of the library returns
+    ``tiles[name]``: the constants a wrapper shares with csrc/``source``.
+    Runs once a source."""
+    if source in _tiles_checked:
+        return
+    lib = load()
+    got = {}
+    for name in tiles:
+        getter = getattr(lib, "gaml_" + name)
+        getter.argtypes, getter.restype = [], ctypes.c_int
+        got[name] = getter()
+    if got != tiles:
+        raise RuntimeError(f"csrc/{source}'s tiles differ from the "
+                           f"wrapper's")
+    _tiles_checked.add(source)
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the kernel entry point ``gaml_<name>`` with ``args`` on
+    ``device``'s current CUDA stream: a tensor passes as its data pointer,
+    None as a null pointer, the rest as they are (the argtypes load()
+    declares convert them).  Raises RuntimeError on a CUDA error."""
+    import torch
+
+    entry = getattr(load(), "gaml_" + name)
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+             for a in args]
+    here = device.index is None or device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if here else torch.cuda.device(device):
+        err = entry(*cargs, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

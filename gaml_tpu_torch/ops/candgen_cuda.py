@@ -1,5 +1,6 @@
 """Candidate generation on the card (csrc/candgen.cu): the wrapper, its
-launch counts and the numpy twin of its algorithm.
+launch counts (in utils.metrics.LAUNCHES) and the numpy twin of its
+algorithm.
 
 ``query_kernel`` computes what ``DeviceCandGen.query_plain`` computes
 (the reference's GetMinHashWithPoses / GetReadCandsWithPoses,
@@ -30,13 +31,13 @@ tiles, so that windows, runs, segments and sort tiles cross tile edges.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 
 import numpy as np
 import torch
 
 from ..index.maxhash import HASH_XOR, K_INDEX_KMER
-from ..utils.metrics import span
+from ..utils.metrics import LAUNCHES, span
+from .build import check_tiles, launch, load
 
 K = K_INDEX_KMER
 L_MAX = 4096  # longest read length the runs pass holds in shared memory
@@ -51,37 +52,9 @@ BUCKET_SHIFT = 12  # 30-bit fingerprints in 2^18 buckets (kBucketShift)
 N_BUCKETS = 1 << (30 - BUCKET_SHIFT)
 WAVE = 40  # tiles in flight at once in the twin's look-back
 _POS_MASK = (1 << 32) - 1
-
-# launches of each kernel by query_kernel
-LAUNCHES = {"candgen_runs": 0, "candgen_block": 0, "candgen_expand": 0,
-            "candgen_hist": 0, "candgen_scatter": 0}
-
-
-def _lib():
-    """The kernel library, its candgen constants checked on first load."""
-    from .build import load
-
-    lib = load()
-    if not getattr(lib, "candgen_checked", False):
-        if (lib.gaml_candgen_tile(), lib.gaml_candgen_sort_tile(),
-                lib.gaml_candgen_block_max()) != (TILE, SORT_TILE,
-                                                  BLOCK_MAX):
-            raise RuntimeError("csrc/candgen.cu's tiles differ from the "
-                               "wrapper's")
-        lib.candgen_checked = True
-    return lib
-
-
-def _call(name, stream, args):
-    """Call ``gaml_<name>`` with ``args`` (tensors as their pointers, ints
-    as they are, None as a null pointer) on the CUDA stream ``stream``;
-    raise on a CUDA error."""
-    ptr = ctypes.c_void_p
-    cargs = [ptr(a.data_ptr()) if isinstance(a, torch.Tensor) else a
-             for a in args]
-    err = getattr(_lib(), "gaml_" + name)(*cargs, ptr(stream))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+# the constants csrc/candgen.cu must share, by their entry points
+_TILES = {"candgen_tile": TILE, "candgen_sort_tile": SORT_TILE,
+          "candgen_block_max": BLOCK_MAX}
 
 
 def fp_buckets(fp: np.ndarray) -> np.ndarray:
@@ -164,7 +137,8 @@ def query_kernel(gen, codes, seg_base, seg_len, cap, mark,
     g, L = codes.shape[0], gen.read_len
     if L < K or g < L:
         return gen._empty(codes, seg_base, seg_len)
-    lib = _lib()
+    check_tiles("candgen.cu", _TILES)
+    lib = load()
     n_tiles = -(-g // TILE)
     here = dev.index is None or dev.index == torch.cuda.current_device()
     with contextlib.nullcontext() if here else torch.cuda.device(dev):
@@ -176,9 +150,9 @@ def query_kernel(gen, codes, seg_base, seg_len, cap, mark,
             count = gen._count = torch.empty(1, dtype=torch.int64,
                                              pin_memory=True)
         with span("candgen.runs"):
-            _call("candgen_runs", stream.cuda_stream, (
-                codes, seg_base, seg_len, seg_len.shape[0], g, L, gen.sf,
-                gen.off, gen.bucket, n_tiles, ws, count))
+            launch("candgen_runs", dev, codes, seg_base, seg_len,
+                   seg_len.shape[0], g, L, gen.sf, gen.off, gen.bucket,
+                   n_tiles, ws, count)
             LAUNCHES["candgen_runs"] += 1
             mark("runs")
             with span("sync"):  # the query's one host synchronisation
@@ -203,16 +177,14 @@ def query_kernel(gen, codes, seg_base, seg_len, cap, mark,
             args = (ws, n_tiles, gen.rids, gen.seed2, gen.row_of, n_total,
                     rid_bits, bits)
             if bits <= 32 and n_total <= min(one_block_max, BLOCK_MAX):
-                _call("candgen_sort", stream.cuda_stream,
-                      args + (0, None, out))
+                launch("candgen_sort", dev, *args, 0, None, out)
                 LAUNCHES["candgen_block"] += 1
                 mark("block")
             else:
                 scratch = torch.empty(
                     lib.gaml_candgen_scratch_bytes(n_total, int(bits > 32)),
                     dtype=torch.uint8, device=dev)
-                _call("candgen_sort", stream.cuda_stream,
-                      args + (1, scratch, out))
+                launch("candgen_sort", dev, *args, 1, scratch, out)
                 passes = max(1, -(-bits // DIGIT_BITS))
                 LAUNCHES["candgen_expand"] += 1
                 LAUNCHES["candgen_hist"] += passes - 1

@@ -41,7 +41,7 @@ import torch
 
 from ..index.maxhash import (HASH_XOR, K_INDEX_KMER, index_csr,
                              pack_kmers_batch)
-from ..utils.metrics import span
+from ..utils.metrics import LAUNCHES, span
 from .candgen_cuda import fp_buckets
 
 K = K_INDEX_KMER
@@ -72,11 +72,6 @@ class Candidates(NamedTuple):
 
 def _shift_left(a: torch.Tensor, sh: int, fill: int) -> torch.Tensor:
     return torch.cat([a[sh:], a.new_full((sh,), fill)])
-
-
-# calls of DeviceCandGen.query_plain: on a card every query runs the
-# kernel, so a card's main path leaves this at 0
-PLAIN_CALLS = {"query_plain": 0}
 
 
 def stage_marker(split: Optional[list], device: torch.device):
@@ -268,7 +263,9 @@ class DeviceCandGen:
         """``query`` as a chain of torch operations: the kernel's plain
         version (the CPU route, and the card's yardstick).  Three host
         synchronisations on the card (two ``nonzero``, the count)."""
-        PLAIN_CALLS["query_plain"] += 1
+        # counted: on a card every query runs the kernel, so a card's main
+        # path leaves query_plain at 0
+        LAUNCHES["query_plain"] += 1
         mark = stage_marker(split, self.device)
         with span("candgen.upload"):
             codes_u8, seg_base, seg_len = staged if staged is not None else \

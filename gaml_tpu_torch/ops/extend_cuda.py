@@ -1,5 +1,5 @@
 """Kernels K1-K4 and the exact two-direction extension (csrc/band_dp.cu):
-wrappers, plain versions, launch counts.
+wrappers, plain versions, launch counts (in utils.metrics.LAUNCHES).
 
 K1 ``swar_cost`` replaces gaml_tpu/ops/extend_pallas.py::swar_cost_pallas
 (forward direction: the d=0 cost saturated at 7).  K2
@@ -35,17 +35,13 @@ they launch the kernel or raise.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from ..utils.metrics import LAUNCHES
+from .build import launch, load
 from .extend import ERROR_LIMIT, PAD, dp_rows, extend_epilogue, stage_views
 
 SAT = 7
-
-# launches of each kernel by its wrapper (plain-version calls not counted)
-LAUNCHES = {"swar_cost": 0, "swar_cost_accept": 0, "dp_rows_exact": 0,
-            "extend_exact": 0, "extend_exact_staged": 0}
 
 
 def dp_rows_exact_ref(read_t, gwin_t, rlen, glen):
@@ -88,26 +84,10 @@ def _check(read_t, gwin_t, rlen, glen):
     return rmax, n
 
 
-def _call(name, device, tensors, ints, outs):
-    """Launch ``gaml_<name>`` on ``device``'s current stream with the
-    tensors' pointers, the ints and the outputs' pointers; count it."""
-    from .build import load
-
-    lib = load()
-    ptr = ctypes.c_void_p
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        args = [ptr(t.data_ptr()) for t in tensors] + list(ints)
-        args += [ptr(o.data_ptr()) for o in outs]
-        err = getattr(lib, "gaml_" + name)(*args, ptr(stream))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
-
-
 def _launch(name, read_t, gwin_t, rlen, glen, outs):
     rmax, n = read_t.shape
-    _call(name, read_t.device, (read_t, gwin_t, rlen, glen), (n, rmax), outs)
+    launch(name, read_t.device, read_t, gwin_t, rlen, glen, n, rmax, *outs)
+    LAUNCHES[name] += 1
 
 
 def swar_cost(read_t, gwin_t, rlen, glen):
@@ -205,8 +185,6 @@ def _outputs(n, device):
 
 def _exact_scratch(n: int, rmax: int, device):
     """The int32 scratch of an exact launch (the candidates' order)."""
-    from .build import load
-
     return torch.empty(load().gaml_exact_scratch(n, rmax), dtype=torch.int32,
                        device=device)
 
@@ -231,10 +209,10 @@ def extend_exact(codes, lens, buf, base, glen, g0, r0, row, rmax: int):
                                 rmax)
     out = _outputs(n, codes.device)
     if n:
-        _call("extend_exact", codes.device,
-              (codes, lens, buf, base, glen, g0, r0, row,
-               _exact_scratch(n, rmax, codes.device)),
-              (n, codes.shape[1], rmax), out)
+        launch("extend_exact", codes.device, codes, lens, buf, base, glen,
+               g0, r0, row, _exact_scratch(n, rmax, codes.device), n,
+               codes.shape[1], rmax, *out)
+        LAUNCHES["extend_exact"] += 1
     return out
 
 
@@ -284,6 +262,7 @@ def extend_exact_staged(st):
         raise ValueError(f"unsupported device {dev}")
     out = _outputs(nb, dev)
     if nb:
-        _call("extend_exact_staged", dev, tuple(st[k] for k in STAGED)
-              + (_exact_scratch(nb, rmax, dev),), (nb, rmax), out)
+        launch("extend_exact_staged", dev, *(st[k] for k in STAGED),
+               _exact_scratch(nb, rmax, dev), nb, rmax, *out)
+        LAUNCHES["extend_exact_staged"] += 1
     return out

@@ -1,4 +1,5 @@
-"""Kernel K5 (csrc/banded_forward.cu): wrapper, plain version, launch count.
+"""Kernel K5 (csrc/banded_forward.cu): wrapper, plain version, launch count
+(``banded_forward`` in utils.metrics.LAUNCHES).
 
 K5 ``banded_forward`` replaces gaml_tpu/ops/forward_pallas.py::
 banded_forward_pallas_call: the banded log-space forward DP of a batch of
@@ -21,17 +22,18 @@ launches the kernel or raises.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from ..utils import metrics
+from .build import launch
 from .forward import banded_forward as _plain_forward
 from .forward import banded_forward_scaled
 
 WIDTHS = (64, 128)
 
-# launches of the kernel by its wrapper (plain-version calls not counted)
-LAUNCHES = {"banded_forward": 0}
+# the package's one launch-count store under this module's name, which
+# the benchmark's PacBio rescore reads K5's launches from
+LAUNCHES = metrics.LAUNCHES
 
 
 def banded_forward_ref(reads, row, seq, steps, c0, gstart, glen, rlen,
@@ -97,21 +99,8 @@ def banded_forward(reads, row, seq, steps, c0, gstart, glen, rlen,
     out = torch.empty(b, dtype=torch.float32, device=steps.device)
     if b == 0:
         return out
-    from .build import load
-
-    lib = load()
-    ptr = ctypes.c_void_p
-    with torch.cuda.device(steps.device):
-        stream = torch.cuda.current_stream(steps.device).cuda_stream
-        err = lib.gaml_banded_forward(
-            ptr(reads.data_ptr()), reads.shape[0], reads.shape[1],
-            ptr(row.data_ptr()), ptr(seq.data_ptr()), seq.shape[0],
-            ptr(steps.data_ptr()), steps.shape[1], ptr(c0.data_ptr()),
-            ptr(gstart.data_ptr()), ptr(glen.data_ptr()),
-            ptr(rlen.data_ptr()), b, width, log_match, log_mismatch,
-            ptr(out.data_ptr()), ptr(stream))
-    if err != 0:
-        raise RuntimeError(f"banded_forward kernel launch failed: CUDA "
-                           f"error {err}")
+    launch("banded_forward", steps.device, reads, reads.shape[0],
+           reads.shape[1], row, seq, seq.shape[0], steps, steps.shape[1], c0,
+           gstart, glen, rlen, b, width, log_match, log_mismatch, out)
     LAUNCHES["banded_forward"] += 1
     return out

@@ -1,5 +1,6 @@
 """The rescore's stages after the extension on the card (csrc/rescore.cu):
-the wrapper, its launch counts and the numpy twin of its algorithm.
+the wrapper, its launch counts (in utils.metrics.LAUNCHES) and the numpy
+twin of its algorithm.
 
 ``score_kernel`` computes what ``rescore_device.score_plain`` computes
 (the first-wins dedup of the extension's alignments, graph.cc:895-897;
@@ -30,49 +31,22 @@ torch chain at tiny tiles, so that runs cross tile edges.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import math
 
 import numpy as np
 import torch
 
-from ..utils.metrics import count, span
+from ..utils.metrics import LAUNCHES, count, span
+from .build import check_tiles, launch
 
 TILE = 1024  # candidates a block of the dedup pass (kTile in rescore.cu)
 REDUCE_THREADS = 256  # threads a block of the reduction (kRThreads)
 REDUCE_TILE = 2048  # bins a block of the reduction (kRTile)
 _EMPTY = -1  # a free table slot (kEmpty: all bits set)
 _NO_IDX = 2**31 - 1  # a slot's index, unclaimed (kNoIdx)
-
-# launches of each kernel by score_kernel
-LAUNCHES = {"rescore_dedup_sums": 0, "rescore_reduce": 0}
-
-
-def _lib():
-    """The kernel library, its rescore constants checked on first load."""
-    from .build import load
-
-    lib = load()
-    if not getattr(lib, "rescore_checked", False):
-        if (lib.gaml_rescore_tile(), lib.gaml_rescore_reduce_tile(),
-                lib.gaml_rescore_reduce_threads()) != (TILE, REDUCE_TILE,
-                                                       REDUCE_THREADS):
-            raise RuntimeError("csrc/rescore.cu's tiles differ from the "
-                               "wrapper's")
-        lib.rescore_checked = True
-    return lib
-
-
-def _call(name, stream, args):
-    """Call ``gaml_<name>`` with ``args`` (tensors as their pointers, None
-    as a null pointer, the rest as they are) on the CUDA stream ``stream``;
-    raise on a CUDA error."""
-    ptr = ctypes.c_void_p
-    cargs = [ptr(a.data_ptr()) if isinstance(a, torch.Tensor) else
-             ptr(None) if a is None else a for a in args]
-    err = getattr(_lib(), "gaml_" + name)(*cargs, ptr(stream))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+# the constants csrc/rescore.cu must share, by their entry points
+_TILES = {"rescore_tile": TILE, "rescore_reduce_tile": REDUCE_TILE,
+          "rescore_reduce_threads": REDUCE_THREADS}
 
 
 class Workspace:
@@ -185,13 +159,13 @@ def score_kernel(resc, c, ext, log_match: float, log_mismatch: float,
         if len(tl) != n_jobs:
             raise ValueError(f"{len(tl)} totals for {n_jobs} jobs")
     count("rescore.fused")
+    check_tiles("rescore.cu", _TILES)
     ws = getattr(resc, "_score_ws", None)
     if ws is None:
         ws = resc._score_ws = Workspace(dev)
     per_job = max(-(-n_reads // REDUCE_TILE), 1)
     here = dev.index is None or dev.index == torch.cuda.current_device()
     with contextlib.nullcontext() if here else torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         ws.ready(n_jobs * n_reads, n, 2 * n_jobs * per_job, 2 * n_jobs + 1)
         jobs = log_tot = None
         if seg_job is not None:
@@ -200,16 +174,14 @@ def score_kernel(resc, c, ext, log_match: float, log_mismatch: float,
         with span("rescore.sums"):
             if n:
                 ok, errs, begin = ext
-                _call("rescore_dedup_sums", stream, (
-                    ok, errs, begin, c.seg, c.rid, lens, jobs, n, n_reads,
-                    float(log_match), float(log_mismatch), ws.tkey, ws.tidx,
-                    ws.bins, ws.ctl))
+                launch("rescore_dedup_sums", dev, ok, errs, begin, c.seg,
+                       c.rid, lens, jobs, n, n_reads, float(log_match),
+                       float(log_mismatch), ws.tkey, ws.tidx, ws.bins, ws.ctl)
                 LAUNCHES["rescore_dedup_sums"] += 1
         with span("rescore.reduce"):
-            _call("rescore_reduce", stream, (
-                ws.bins, lens, n_reads, n_jobs, log_tot, float(tl[0]),
-                float(min_prob_start), float(min_prob_per_base), ws.part,
-                ws.ctl, ws.out, ws.host))
+            launch("rescore_reduce", dev, ws.bins, lens, n_reads, n_jobs,
+                   log_tot, float(tl[0]), float(min_prob_start),
+                   float(min_prob_per_base), ws.part, ws.ctl, ws.out, ws.host)
             LAUNCHES["rescore_reduce"] += 1
             ws.clean = True
             with span("sync"):  # the stage's one read-back

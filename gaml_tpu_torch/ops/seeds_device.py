@@ -1,6 +1,6 @@
 """The long-read seed lookup on the card (csrc/seeds.cu): the wrapper, its
-launch counts, its plain torch version and the numpy twin of its
-algorithm.
+launch counts (in utils.metrics.LAUNCHES), its plain torch version and the
+numpy twin of its algorithm.
 
 One batch is every (range, read, strand) query of one precompute: the
 ranges' spelled sub-walks concatenated in ``seq`` (``range_len`` each),
@@ -30,49 +30,21 @@ says what bounds them.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 
 import numpy as np
 import torch
 
 from ..align.longread import MAX_KMER_OCC, SEED_K
-from ..utils.metrics import span
+from ..utils.metrics import LAUNCHES, span
+from .build import check_tiles, launch
 
 K_BITS = 2 * SEED_K  # bits of a packed k-mer (the key's low bits)
 SORT_TILE = 4096  # keys a block of the radix sort (kSortTile in seeds.cu)
 QUERY_TILE = 2048  # query k-mers a block of the count pass (kQTile)
 QUERY_PER = 8  # consecutive query k-mers a thread (kQPer)
 DIGIT_BITS = 8
-
-# launches of each kernel by seed_hits
-LAUNCHES = {"seeds_keys": 0, "seeds_hist": 0, "seeds_scatter": 0,
-            "seeds_count": 0, "seeds_scan": 0, "seeds_expand": 0}
-
-
-def _lib():
-    """The kernel library, its seed constants checked on first load."""
-    from .build import load
-
-    lib = load()
-    if not getattr(lib, "seeds_checked", False):
-        if (lib.gaml_seeds_sort_tile(), lib.gaml_seeds_query_tile()) != \
-                (SORT_TILE, QUERY_TILE):
-            raise RuntimeError("csrc/seeds.cu's tiles differ from the "
-                               "wrapper's")
-        lib.seeds_checked = True
-    return lib
-
-
-def _call(name, stream, args):
-    """Call ``gaml_<name>`` with ``args`` (tensors as their pointers, the
-    rest as they are) on the CUDA stream ``stream``; raise on a CUDA
-    error."""
-    ptr = ctypes.c_void_p
-    cargs = [ptr(a.data_ptr()) if isinstance(a, torch.Tensor) else a
-             for a in args]
-    err = getattr(_lib(), "gaml_" + name)(*cargs, ptr(stream))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+# the constants csrc/seeds.cu must share, by their entry points
+_TILES = {"seeds_sort_tile": SORT_TILE, "seeds_query_tile": QUERY_TILE}
 
 
 def layout(range_len, seg_len):
@@ -156,6 +128,7 @@ def _seed_hits_kernel(rows, seq, range_len, seg_row, seg_range, seg_len,
     n_t, n_q = int(kstart[-1]), int(qstart[-1])
     if n_seg == 0 or n_t == 0:
         return np.zeros(n_seg + 1, np.int64), np.zeros((0, 2), np.int32)
+    check_tiles("seeds.cu", _TILES)
     here = dev.index is None or dev.index == torch.cuda.current_device()
     with contextlib.nullcontext() if here else torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
@@ -184,9 +157,8 @@ def _seed_hits_kernel(rows, seq, range_len, seg_row, seg_range, seg_len,
         done = torch.empty(8, dtype=i64, device=dev)
         skm = torch.empty(n_t, dtype=i32, device=dev)
         spos = torch.empty(n_t, dtype=i32, device=dev)
-        _call("seeds_index", stream.cuda_stream, (
-            seq_d, kstart_d, rbase_d, n_ranges, n_t, bits, key[0], key[1],
-            val[0], val[1], counts, done, skm, spos))
+        launch("seeds_index", dev, seq_d, kstart_d, rbase_d, n_ranges, n_t,
+               bits, key[0], key[1], val[0], val[1], counts, done, skm, spos)
         LAUNCHES["seeds_keys"] += 1
         LAUNCHES["seeds_hist"] += passes - 1
         LAUNCHES["seeds_scatter"] += passes
@@ -198,10 +170,8 @@ def _seed_hits_kernel(rows, seq, range_len, seg_row, seg_range, seg_len,
         boff = torch.empty(blocks, dtype=i64, device=dev)
         ctl = torch.empty(1, dtype=i64, device=dev)
         total_h = ws.pinned("total", 1)
-        _call("seeds_count", stream.cuda_stream, (
-            rows, ctypes.c_longlong(rows.shape[1]), kstart_d, qstart_d,
-            seg_d, n_seg, ctypes.c_longlong(n_q), skm, qleft, qcnt, bsum,
-            boff, ctl, total_h))
+        launch("seeds_count", dev, rows, rows.shape[1], kstart_d, qstart_d,
+               seg_d, n_seg, n_q, skm, qleft, qcnt, bsum, boff, ctl, total_h)
         LAUNCHES["seeds_count"] += 1
         LAUNCHES["seeds_scan"] += 1
         with span("sync"):  # the total sizes the output
@@ -211,9 +181,8 @@ def _seed_hits_kernel(rows, seq, range_len, seg_row, seg_range, seg_len,
         words = n_seg + 1 + total
         out = torch.empty(words, dtype=i64, device=dev)
         out_h = ws.pinned("out", words)
-        _call("seeds_expand", stream.cuda_stream, (
-            qstart_d, n_seg, ctypes.c_longlong(n_q), qleft, qcnt, boff, ctl,
-            spos, ctypes.c_longlong(total), out, out_h))
+        launch("seeds_expand", dev, qstart_d, n_seg, n_q, qleft, qcnt, boff,
+               ctl, spos, total, out, out_h)
         LAUNCHES["seeds_expand"] += 1
         with span("sync"):  # the one read-back
             stream.synchronize()

@@ -28,12 +28,6 @@ from ..core.paths import path_len, split_at_gaps, total_len as paths_total_len
 from ..utils.metrics import count, span
 from .reduce import get_total_prob, get_total_prob_from_logs
 
-import os
-
-# run the two mates' position collections on concurrent OS threads
-# (pays off on many-core hosts; hurts on tiny shared VMs)
-_COLLECT_PARALLEL = os.environ.get("GAML_COLLECT_PARALLEL") == "1"
-
 
 @dataclass
 class ScoringState:
@@ -95,46 +89,6 @@ def _pair_product(read_set1, read_set2, rid: int, x_pos: int, x_ed: int,
     p2 = (read_set2.mismatch_probs[y_ed] *
           read_set2.match_probs[read_set2.get_read_len(rid) - y_ed])
     return p1 * p2 * insert_prob(dist, table, insert_mean, insert_std), dist
-
-
-def calc_score_for_path_paired_legacy(graph, path, read_set1, read_set2,
-                                      insert_mean: float, insert_std: float,
-                                      use_caching: bool = True):
-    """Single-walk debug scorer (reference CalcScoreForPath paired,
-    graph.cc:1600-1648).  Dead in the reference driver but part of the
-    public surface; note its *different* distance convention
-    (dist = far - near - near-mate length, no innie geometry check beyond
-    opposite orientations) and the legacy log10 reduction."""
-    from .reduce import get_total_prob_legacy
-
-    assert read_set1.get_number_of_reads() == read_set2.get_number_of_reads()
-    if use_caching:
-        positions1, tl1 = read_set1.get_positions(graph, path)
-        positions2, tl2 = read_set2.get_positions(graph, path)
-    else:
-        positions1, tl1 = read_set1.get_positions_slow(graph, path)
-        positions2, tl2 = read_set2.get_positions_slow(graph, path)
-    assert tl1 == tl2
-    table = insert_prob_table(insert_mean, insert_std)
-    n = read_set1.get_number_of_reads()
-    read_probs = np.zeros(n, dtype=np.float64)
-    for i in range(n):
-        for x_pos, (x_ed, x_or) in positions1[i]:
-            p1 = (read_set1.mismatch_probs[x_ed] *
-                  read_set1.match_probs[read_set1.get_read_len(i) - x_ed])
-            for y_pos, (y_ed, y_or) in positions2[i]:
-                if x_or == y_or:
-                    continue
-                p2 = (read_set2.mismatch_probs[y_ed] *
-                      read_set2.match_probs[read_set2.get_read_len(i) - y_ed])
-                if x_pos < y_pos:
-                    dist = y_pos - x_pos - read_set1.get_read_len(i)
-                else:
-                    dist = x_pos - y_pos - read_set2.get_read_len(i)
-                read_probs[i] += p1 * p2 * insert_prob(
-                    dist, table, insert_mean, insert_std)
-    score, _zero = get_total_prob_legacy(read_probs, tl1)
-    return score
 
 
 def collect_paired_positions(graph, paths, read_set1, read_set2):
@@ -260,8 +214,7 @@ def calc_score_for_path_inc(graph, path, read_set1, read_set2,
     if get_lib() is not None:
         # fully native per-walk pipeline: window staging (python, O(nodes))
         # -> C++ position collection -> C++ two-sided pair loop
-        from ..native import (collect_positions_ptr,
-                              collect_positions_ptr_pair, paired_inc_pairs2)
+        from ..native import collect_positions_ptr, paired_inc_pairs2
 
         ctgs_with_st = []
         cur_len = 0
@@ -313,20 +266,10 @@ def calc_score_for_path_inc(graph, path, read_set1, read_set2,
                 pool2 = read_set2._collect_pool = [None]
         staged1 = read_set1.stage_position_windows(graph, ctgs_with_st)
         staged2 = read_set2.stage_position_windows(graph, ctgs_with_st)
-        if _COLLECT_PARALLEL:
-            # concurrent dual-collect: wins on many-core hosts, loses on
-            # tiny shared VMs (doubles the streaming working set)
-            g1, g2 = collect_positions_ptr_pair(
-                staged1, staged2, pool1=pool1, pool2=pool2,
-                n_reads1=read_set1.get_number_of_reads(),
-                n_reads2=read_set2.get_number_of_reads())
-        else:
-            g1 = collect_positions_ptr(
-                staged1, pool=pool1,
-                n_reads=read_set1.get_number_of_reads())
-            g2 = collect_positions_ptr(
-                staged2, pool=pool2,
-                n_reads=read_set2.get_number_of_reads())
+        g1 = collect_positions_ptr(
+            staged1, pool=pool1, n_reads=read_set1.get_number_of_reads())
+        g2 = collect_positions_ptr(
+            staged2, pool=pool2, n_reads=read_set2.get_number_of_reads())
         p_arr, rid_arr, ev_pos, ev_typ = paired_inc_pairs2(
             g1, g2,
             read_set1.read_lens_i32(), read_set2.read_lens_i32(),

@@ -670,19 +670,6 @@ class ReadSet:
             cur_pos += graph.node_len(path[i])
         return self.positions, total_len
 
-    def get_positions_slow(self, graph, path: Sequence[int]):
-        """Uncached full-walk alignment: the subprocess-free equivalent of
-        the reference's bowtie2 path (GetPositionsSlow, graph.cc:344-441):
-        align every candidate read against the whole spelled walk in one
-        shot, no window cache.  Returns (positions, total_len)."""
-        self.positions = [[] for _ in range(self.reads_num)]
-        seq = graph.spell(path, gaps_as_n=False)
-        total_len = len(seq)
-        for al in self.aligner.align_seq(seq).tuples():
-            self.positions[al.read_id].append(
-                (al.position, (al.edit_dist, al.orientation)))
-        return self.positions, total_len
-
     def get_positions_only_path(self, graph, path: Sequence[int], st: int,
                                 current: Dict[int, List[Alignment]]) -> None:
         """Positions of one gap-free contig collected into a read->alignments

@@ -174,12 +174,12 @@ def score_world(device) -> Dict:
     from ..align.aligner import gen_candidates
     from ..core import dna
     from ..index.maxhash import ReadIndexMaxHash
-    from ..ops import forward_cuda
     from ..ops.forward import banded_forward
     from ..ops.forward_device import ForwardDeviceEngine
     from ..parallel import distributed, paired_sharded, sharded
     from ..parallel.device_state import DeviceScoringState
     from ..parallel.pacbio_sharded import ShardedPacbioScorer
+    from ..utils.metrics import LAUNCHES
 
     res: Dict = {}
     rank, size = distributed.world()
@@ -276,9 +276,7 @@ def score_world(device) -> Dict:
     res["partials"] = list(distributed.combine_partials(
         float(lp[lo:hi].sum()), int((lp[lo:hi] < -24).sum()), hi - lo))
 
-    from ..ops import extend_cuda
-
-    res["launches"] = {**extend_cuda.LAUNCHES, **forward_cuda.LAUNCHES}
+    res["launches"] = dict(LAUNCHES)
     return res
 
 

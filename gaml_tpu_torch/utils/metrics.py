@@ -3,8 +3,9 @@
 The reference's only observability is printf lines (SURVEY.md section 5.1,
 5.5).  Here: ``Metrics``, named counters and phase timers with aggregate
 stats (``Optimizer.metrics`` keeps the always-on timers ``propose`` and
-``rescore``), and ``TRACE``, the ``Metrics`` that the program's spans and
-counters record into.
+``rescore``), ``TRACE``, the ``Metrics`` that the program's spans and
+counters record into, and ``LAUNCHES``, the always-on counts of the CUDA
+kernels' launches and of the calls of the routes they replace.
 
 ``span(name)`` and ``count(name, n)`` record only while tracing is on:
 while a torch.profiler profile records in this process (the CLI's
@@ -26,7 +27,7 @@ from __future__ import annotations
 import sys
 import threading
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from contextlib import contextmanager
 from typing import Dict, Optional, Tuple
 
@@ -86,6 +87,13 @@ class Metrics:
 
 
 TRACE = Metrics()
+
+# Always on, by name: each kernel wrapper adds the launches it makes
+# (``candgen_runs``, ``extend_exact``, ``seeds_count``, ...), and the
+# CPU routes their calls (``query_plain``, ``gen_candidates``).  A name
+# never counted reads 0; the CLI's ``device work`` line reports every
+# name counted.
+LAUNCHES = Counter()
 
 _open = threading.local()  # .stack: this thread's open spans, innermost last
 _profiler = None  # torch.autograd.profiler, once torch is loaded

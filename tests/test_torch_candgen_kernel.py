@@ -17,6 +17,8 @@ is missing:
 
     python -m pytest --noconftest -m cuda tests/test_torch_candgen_kernel.py
 """
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -25,9 +27,10 @@ from hypothesis import strategies as st
 
 from gaml_tpu_torch.core import dna
 from gaml_tpu_torch.index.maxhash import K_INDEX_KMER, ReadIndexMaxHash
-from gaml_tpu_torch.ops import candgen_cuda, candgen_device
+from gaml_tpu_torch.ops import candgen_cuda
 from gaml_tpu_torch.ops.candgen_cuda import query_twin
 from gaml_tpu_torch.ops.candgen_device import DeviceCandGen, stage_ms
+from gaml_tpu_torch.utils.metrics import LAUNCHES
 
 TILES = (7, 32, 128)
 
@@ -245,10 +248,10 @@ def test_cpu_query_runs_plain_and_splits():
     stages in order; the kernel's wrapper refuses a CPU index."""
     reads, segs = world(2, n_seg=3, seg_lens=(200, 400))
     gen = DeviceCandGen(make_bundle(reads), "cpu")
-    before = candgen_device.PLAIN_CALLS["query_plain"]
+    before = LAUNCHES["query_plain"]
     split = []
     c = gen.query(segs, split=split)
-    assert candgen_device.PLAIN_CALLS["query_plain"] == before + 1
+    assert LAUNCHES["query_plain"] == before + 1
     assert c.n_total > 0
     assert list(stage_ms(split)) == [
         "upload", "segments", "hash", "window_max", "runs_nonzero",
@@ -281,10 +284,10 @@ def card():
 def kernel_against_plain(reads, segs, device, cap=None):
     gen = DeviceCandGen(make_bundle(reads), device)
     staged = gen.upload(segs)
-    plain = candgen_device.PLAIN_CALLS["query_plain"]
+    plain = LAUNCHES["query_plain"]
     got = gen.query(cap=cap, staged=staged)
     torch.cuda.synchronize()
-    assert candgen_device.PLAIN_CALLS["query_plain"] == plain
+    assert LAUNCHES["query_plain"] == plain
     want = gen.query_plain(cap=cap, staged=staged)
     assert_same(got, want)
     return got
@@ -417,21 +420,18 @@ def test_kernel_launches_of_one_query():
     staged = gen.upload(segs)
     bits = sum(candgen_cuda.key_bits(len(segs), gen.row_of.shape[0]))
     passes = -(-bits // candgen_cuda.DIGIT_BITS)
-    none = dict.fromkeys(candgen_cuda.LAUNCHES, 0)
     for route, want in (
             (dict(one_block_max=1 << 30), dict(candgen_block=1)),
             (dict(one_block_max=0), dict(candgen_expand=1,
                                          candgen_hist=passes - 1,
                                          candgen_scatter=passes))):
-        for k in candgen_cuda.LAUNCHES:
-            candgen_cuda.LAUNCHES[k] = 0
+        before = LAUNCHES.copy()
         c = forced(gen, staged, **route)
         torch.cuda.synchronize()
         assert 0 < c.n_total <= candgen_cuda.BLOCK_MAX
-        assert candgen_cuda.LAUNCHES == dict(none, candgen_runs=1, **want)
+        assert LAUNCHES - before == Counter(candgen_runs=1, **want)
     reads, segs = world(4, n_seg=20, seg_lens=(50, 3000), foreign=True)
     gen = DeviceCandGen(make_bundle(reads), device)
-    for k in candgen_cuda.LAUNCHES:
-        candgen_cuda.LAUNCHES[k] = 0
+    before = LAUNCHES.copy()
     assert gen.query(segs).n_total == 0
-    assert candgen_cuda.LAUNCHES == dict(none, candgen_runs=1)
+    assert LAUNCHES - before == Counter(candgen_runs=1)

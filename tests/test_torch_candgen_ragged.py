@@ -23,7 +23,6 @@ from hypothesis import strategies as st
 
 from gaml_tpu.align.aligner import gen_candidates as jax_gen_candidates
 from gaml_tpu.index.maxhash import ReadIndexMaxHash as JaxIndex
-from gaml_tpu_torch.align import aligner
 from gaml_tpu_torch.align.aligner import (SubpathAligner, _ReadCache,
                                           find_seed_in_read, gen_candidates)
 from gaml_tpu_torch.core import dna
@@ -31,9 +30,9 @@ from gaml_tpu_torch.index.maxhash import (HASH_XOR, K_INDEX_KMER,
                                           ReadIndexMaxHash, index_csr,
                                           maxhash_of_read, pack_kmers_batch,
                                           revcomp_kmers)
-from gaml_tpu_torch.ops import candgen_device
 from gaml_tpu_torch.ops.candgen_cuda import query_twin
 from gaml_tpu_torch.ops.candgen_device import DeviceCandGen
+from gaml_tpu_torch.utils.metrics import LAUNCHES
 
 from fixtures import make_linear_graph, sample_reads
 from test_torch_candgen_kernel import ragged_rows, ragged_world
@@ -316,25 +315,25 @@ def test_aligner_batch_retries_once_and_skips_the_host_pass(monkeypatch):
         return out
 
     monkeypatch.setattr(DeviceCandGen, "query_plain", spy)
-    host = aligner.HOST_CALLS["gen_candidates"]
+    host = LAUNCHES["gen_candidates"]
     got = al.align_subpaths_batch(gr, windows)
-    assert aligner.HOST_CALLS["gen_candidates"] == host
+    assert LAUNCHES["gen_candidates"] == host
     (cap0, n, over), (cap1, n1, over1) = caps
     assert over and cap0 == 4096 < n and (cap1, n1, over1) == (n, n, False)
     assert (al.device_batches, al.device_candidates) == (1, n)
     for w, g in zip(windows, got):
         assert al.align_subpath(gr, w) == g
-    assert aligner.HOST_CALLS["gen_candidates"] == host + len(windows)
+    assert LAUNCHES["gen_candidates"] == host + len(windows)
 
 
 def test_trivial_index_keeps_the_host_pass():
     al, gr, windows = trimmed_aligner(6, 300, index_kind="trivial")
-    host = aligner.HOST_CALLS["gen_candidates"]
-    plain = candgen_device.PLAIN_CALLS["query_plain"]
+    host = LAUNCHES["gen_candidates"]
+    plain = LAUNCHES["query_plain"]
     got = al.align_subpaths_batch(gr, windows)
     assert al.ensure_device_rescorer() is None
-    assert aligner.HOST_CALLS["gen_candidates"] == host + len(windows)
-    assert candgen_device.PLAIN_CALLS["query_plain"] == plain
+    assert LAUNCHES["gen_candidates"] == host + len(windows)
+    assert LAUNCHES["query_plain"] == plain
     assert sum(len(g) for g in got) > 50
     for w, g in zip(windows, got):
         assert al.align_subpath(gr, w) == g

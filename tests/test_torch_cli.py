@@ -154,8 +154,8 @@ def test_mixed_length_trace_matches_jax_device_backend(tmp_path,
     the CPU) and one DeviceExtender.extend call on the read set's
     resident ragged codes (one launch of the exact extension), counted in
     the summary line; the host candidate pass never runs."""
-    from gaml_tpu_torch.align import aligner
-    from gaml_tpu_torch.ops import candgen_device, extend_device
+    from gaml_tpu_torch.ops import extend_device
+    from gaml_tpu_torch.utils.metrics import LAUNCHES
 
     calls = []
     real = extend_device.DeviceExtender.extend
@@ -163,11 +163,11 @@ def test_mixed_length_trace_matches_jax_device_backend(tmp_path,
                         lambda self, *a, **kw: calls.append(len(a[3]))
                         or real(self, *a, **kw))
     # the counts are the process's: earlier tests may have added to them
-    before = {**candgen_device.PLAIN_CALLS, **aligner.HOST_CALLS}
+    before = {k: LAUNCHES[k] for k in ("query_plain", "gen_candidates")}
     summary = port_against_jax(tmp_path, monkeypatch, capsys, trimmed=True)
     assert summary["batches"] == len(calls) > 0
     assert summary["candidates"] == sum(calls)
-    ran = {k: summary["launches"][k] - v for k, v in before.items()}
+    ran = {k: summary["launches"].get(k, 0) - v for k, v in before.items()}
     assert ran == {"query_plain": len(calls), "gen_candidates": 0}
 
 
@@ -249,11 +249,15 @@ cache_prefix={tmp_path}/pbcache
 
 def test_pacbio_config_runs_on_port_without_jax(tmp_path):
     """A pacbio library on the port's CLI: its forward-DP batches reach
-    the engine (the plain K5 on the CPU), and jax never loads."""
+    the engine (the plain K5 on the CPU), jax never loads, and the
+    summary line reports the seed kernels' counts from the one launch
+    store (set here, since no card runs them)."""
     config = write_pacbio_world(tmp_path)
     code = (
         "import sys\n"
         "from gaml_tpu_torch.cli import main\n"
+        "from gaml_tpu_torch.utils.metrics import LAUNCHES\n"
+        "LAUNCHES['seeds_count'] += 7\n"
         f"rc = main([{config!r}, '--device', 'cpu'])\n"
         "assert rc == 0, rc\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
@@ -267,6 +271,8 @@ def test_pacbio_config_runs_on_port_without_jax(tmp_path):
     assert lines[-1] == "NOJAX-OK"
     summary = json.loads(lines[-2].split("device work: ", 1)[1])
     assert summary["pacbio_cells"].get("torch", 0) > 0
-    assert summary["launches"]["banded_forward"] == 0  # no card: no launch
+    # no card: no launch
+    assert summary["launches"].get("banded_forward", 0) == 0
+    assert summary["launches"]["seeds_count"] == 7
     assert len(itnum_lines(proc.stdout)) >= 8
     assert (tmp_path / "pbout.fasta").stat().st_size > 0

@@ -23,6 +23,7 @@ from gaml_tpu_torch.ops.forward_device import ForwardDeviceEngine, guide_steps
 from gaml_tpu_torch.tools.forward_bench import (ADVERSARIAL_KINDS,
                                                 adversarial_batch,
                                                 dense_layout)
+from gaml_tpu_torch.utils.metrics import LAUNCHES
 
 from fixtures import random_seq
 from test_forward_kernel import MATCH, MISMATCH, noisy_copy
@@ -211,13 +212,13 @@ def test_wrapper_cpu_route_is_plain_version_and_checks_inputs():
     genome, reads, rlens, centers = make_batch(rng)
     gst, gl = targets(rng, len(rlens), len(genome), True)
     args = kernel_inputs(genome, reads, rlens, centers, gst, gl)
-    before = forward_cuda.LAUNCHES["banded_forward"]
+    before = LAUNCHES["banded_forward"]
     got = forward_cuda.banded_forward(*args, LM, LMM, 64)
     # the kernel's precision: float64, the result rounded to float32
     assert got.dtype == torch.float32
     assert torch.equal(got, banded_forward_ref(
         *args, LM, LMM, 64, dtype=torch.float64).float())
-    assert forward_cuda.LAUNCHES["banded_forward"] == before
+    assert LAUNCHES["banded_forward"] == before
     np.testing.assert_allclose(
         got.numpy(), port(genome, reads, rlens, centers, gst, gl, 64,
                           dtype=torch.float64).astype(np.float32),

@@ -1,5 +1,5 @@
-"""The port stands on its own: no module of gaml_tpu_torch, and neither
-chip_smoke.py nor chip_ab.py, imports gaml_tpu or jax; a process that imports every port
+"""The port stands on its own: no module of gaml_tpu_torch, and not
+chip_smoke.py, imports gaml_tpu or jax; a process that imports every port
 module and runs the port's CLI holds neither in sys.modules; and every
 public entry point that takes a device runs on the card unless the caller
 asks for the CPU."""
@@ -22,7 +22,7 @@ PORT = os.path.join(REPO, "gaml_tpu_torch")
 
 
 def port_sources():
-    out = [os.path.join(REPO, f) for f in ("chip_smoke.py", "chip_ab.py")]
+    out = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

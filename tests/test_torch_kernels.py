@@ -27,6 +27,7 @@ from gaml_tpu_torch.ops.extend_cuda import (dp_rows_exact,
                                             swar_cost_ref)
 from gaml_tpu_torch.ops.forward_device import ForwardDeviceEngine, guide_steps
 from gaml_tpu_torch.tools import swar_kernel_proto
+from gaml_tpu_torch.utils.metrics import LAUNCHES
 
 
 def port_native_lib():
@@ -488,10 +489,9 @@ def test_pacbio_dispatch_on_card():
         rs = PacbioReadSet("x", "x.fq", 0.85, 0.0375, device=dev)
         rs._fwd_engine = ForwardDeviceEngine(read_seqs, dev)
         rs.forward_dispatch = True
-        n0 = forward_cuda.LAUNCHES["banded_forward"]
+        n0 = LAUNCHES["banded_forward"]
         out[dev] = np.asarray(rs._forward_batch(seq, jobs, extents))
-        assert forward_cuda.LAUNCHES["banded_forward"] - n0 == \
-            (dev == "cuda")
+        assert LAUNCHES["banded_forward"] - n0 == (dev == "cuda")
         assert set(rs.dp_cells) == {"mesh"}
     got, want = out["cuda"], out["cpu"]
     assert np.isfinite(got).all()

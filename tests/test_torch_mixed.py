@@ -10,10 +10,9 @@ import numpy as np
 import pytest
 
 from gaml_tpu.scoring.readset import ReadSet
-from gaml_tpu_torch.align import aligner as port_aligner
-from gaml_tpu_torch.ops import candgen_device
 from gaml_tpu_torch.ops import extend_device as port_extend
 from gaml_tpu_torch.scoring.readset import ReadSet as PortReadSet
+from gaml_tpu_torch.utils.metrics import LAUNCHES
 
 from fixtures import make_linear_graph, sample_reads, write_fastq
 from test_scoring import MATCH, MISMATCH
@@ -67,12 +66,12 @@ def test_trimmed_read_set_matches_jax_device_aligner(tmp_path, monkeypatch):
         return real(self, *args, **kw)
 
     monkeypatch.setattr(port_extend.DeviceExtender, "extend", spy)
-    plain = candgen_device.PLAIN_CALLS["query_plain"]
-    host = port_aligner.HOST_CALLS["gen_candidates"]
+    plain = LAUNCHES["query_plain"]
+    host = LAUNCHES["gen_candidates"]
     got = al.align_subpaths_batch(port_gr, windows)
     assert len(calls) == 1 and calls[0] > 50
-    assert candgen_device.PLAIN_CALLS["query_plain"] == plain + 1
-    assert port_aligner.HOST_CALLS["gen_candidates"] == host
+    assert LAUNCHES["query_plain"] == plain + 1
+    assert LAUNCHES["gen_candidates"] == host
     assert (al.device_batches, al.device_candidates) == (1, calls[0])
     assert sum(len(w) for w in want) > 50
     for i, (g, w) in enumerate(zip(got, want)):

@@ -30,6 +30,7 @@ from gaml_tpu_torch.ops import seeds_device
 from gaml_tpu_torch.ops.forward_device import ForwardDeviceEngine
 from gaml_tpu_torch.ops.seeds_device import seed_hits, seed_hits_plain, \
     seed_hits_twin
+from gaml_tpu_torch.utils.metrics import LAUNCHES
 
 CASES = ("over_64", "n_codes", "short", "no_hits", "strands_and_ranges")
 
@@ -374,9 +375,9 @@ def test_kernel_launches_and_no_library_sort(monkeypatch):
 
     monkeypatch.setattr(torch, "sort", no_sort)
     monkeypatch.setattr(torch.Tensor, "sort", no_sort)
-    before = dict(seeds_device.LAUNCHES)
+    before = LAUNCHES.copy()
     seed_hits(rows, *args)
     passes = -(-(26 + (len(ranges) - 1).bit_length()) // 8)
-    assert {k: v - before[k] for k, v in seeds_device.LAUNCHES.items()} == {
+    assert LAUNCHES - before == {
         "seeds_keys": 1, "seeds_hist": passes - 1, "seeds_scatter": passes,
         "seeds_count": 1, "seeds_scan": 1, "seeds_expand": 1}

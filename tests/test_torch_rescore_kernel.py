@@ -26,6 +26,7 @@ from gaml_tpu_torch.ops import rescore_cuda
 from gaml_tpu_torch.ops.rescore_cuda import score_kernel, score_twin
 from gaml_tpu_torch.ops.rescore_device import (DeviceRescorer,
                                                dedup_sums_plain, score_plain)
+from gaml_tpu_torch.utils.metrics import LAUNCHES
 
 from test_torch_candgen_kernel import WORLDS, make_bundle, world
 
@@ -227,8 +228,8 @@ def test_score_launches_the_two_kernels_only(monkeypatch):
 
     monkeypatch.setattr(torch, "sort", no_sort)
     monkeypatch.setattr(torch.Tensor, "sort", no_sort)
-    before = dict(rescore_cuda.LAUNCHES)
+    before = LAUNCHES.copy()
     for _ in range(3):
         resc.score(c, ext, total_len=len(genome), **ARGS)
-    assert {k: v - before[k] for k, v in rescore_cuda.LAUNCHES.items()} == {
-        "rescore_dedup_sums": 3, "rescore_reduce": 3}
+    assert LAUNCHES - before == {"rescore_dedup_sums": 3,
+                                 "rescore_reduce": 3}
