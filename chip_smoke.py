@@ -60,8 +60,13 @@ the JAX package is imported.
    batch): hits equal to its plain version's and the host index's, wall,
    device and plain ms, the host index's ms, the bound and the launches,
    and one small range alone; the precomputes launch the kernels once a
-   walk set (``python3 chip_smoke.py --seeds`` runs phases 0, 6b and 7
-   only);
+   walk set, and stage each forward batch raggedly (the staging kernel of
+   csrc/banded_forward.cu, one launch a K5 launch and a
+   ``pacbio.device_batches``); then each walk set's forward batch through
+   the ragged staging against the padded one it replaced (equal inputs,
+   host ms of each to the uploaded inputs), the staging kernel's card,
+   device and plain ms, its bound and launches
+   (``python3 chip_smoke.py --seeds`` runs phases 0, 6b and 7 only);
 7. a PacBio anneal through the port's CLI (``--device cuda``, in this
    process, under the profiler) against the port's CLI on the native host
    route, held to the assembly-level bound of
@@ -178,6 +183,8 @@ RESCORE_KERNELS = ("rescore_dedup_sums_kernel", "rescore_reduce_kernel")
 SEEDS_KERNELS = ("seeds_keys_kernel", "seeds_hist_kernel",
                  "seeds_scatter_kernel", "seeds_count_kernel",
                  "seeds_scan_kernel", "seeds_expand_kernel")
+# the forward batch's ragged staging (csrc/banded_forward.cu)
+STAGE_KERNEL = "forward_stage_kernel"
 PB_MATCH, PB_MISMATCH = 0.85, 0.0375  # config mismatch_prob=0.0375
 # peaks of one NVIDIA H100 SXM for the bounds: HBM bytes/s; the SM clock;
 # 16-bit lane operations/s of the packed integer band (132 SMs x 64 int32
@@ -321,7 +328,8 @@ def phase_card():
         check(usage[entry].get("spill_stores", 0) == 0,
               f"{entry} spills: {usage[entry]}")
         print(f"  {entry}: " + json.dumps(usage[entry]), flush=True)
-    for frag in CANDGEN_KERNELS + RESCORE_KERNELS + SEEDS_KERNELS:
+    for frag in CANDGEN_KERNELS + RESCORE_KERNELS + SEEDS_KERNELS + (
+            STAGE_KERNEL,):
         # each over its instances
         names = [k for k in sass if frag in k]
         reg = ptxas_usage(build.build_info["log"], frag)
@@ -1759,23 +1767,37 @@ def ecoli_pacbio_world(d, device, seed):
 
 
 def seed_batches(rs, graph, pool):
-    """The seed lookup's batch (seqs, rids) of each walk set's precompute
-    from an empty cache, as a ``pacbio.rescore`` request makes it."""
-    got = []
-    lookup = rs._seed_hits
+    """The seed lookup's batch (seqs, rids) and the forward batch (seq,
+    jobs, extents) of each walk set's precompute from an empty cache, as a
+    ``pacbio.rescore`` request makes them, and the program's counters of
+    the precomputes (traced under torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaml_tpu_torch.utils.metrics import TRACE
+
+    got, fwd = [], []
+    lookup, forward = rs._seed_hits, rs._forward_batch
 
     def recorded(seqs, rids):
         got.append((seqs, rids))
         return lookup(seqs, rids)
 
-    rs._seed_hits = recorded
+    def recorded_forward(seq, jobs, extents=None):
+        fwd.append((seq, jobs, extents))
+        return forward(seq, jobs, extents)
+
+    rs._seed_hits, rs._forward_batch = recorded, recorded_forward
+    TRACE.reset()
     try:
-        for walks in pool:
-            rs.aligment_cache = {}
-            rs.precompute_ranges_for_paths(graph, walks)
+        with profile(activities=[ProfilerActivity.CPU]):
+            for walks in pool:
+                rs.aligment_cache = {}
+                rs.precompute_ranges_for_paths(graph, walks)
+        counters = dict(TRACE.counters)
     finally:
-        del rs._seed_hits
-    return got
+        del rs._seed_hits, rs._forward_batch
+        TRACE.reset()
+    return got, fwd, counters
 
 
 def seeds_bound(seq_len, seg_row, seg_len, n_hits):
@@ -1815,6 +1837,110 @@ def seed_launches(batches):
     return want
 
 
+def stage_bound(n_centers, n_jobs, rmax):
+    """The staging kernel's bound: the centers (4 bytes), offsets (8,
+    n_jobs + 1) and gstarts (4) read once, the steps (n_jobs x rmax
+    bytes) and c0 (4) written once, over HBM_BPS."""
+    nbytes = 4 * n_centers + 8 * (n_jobs + 1) + 8 * n_jobs + n_jobs * rmax
+    return {"bound_ms": nbytes / HBM_BPS * 1e3, "bytes": nbytes,
+            "bound_by": "bytes"}
+
+
+def stage_cases(device, rs, batches, reps):
+    """Each forward batch (seq, jobs, extents) of seed_batches staged
+    raggedly (ragged_arrays, ForwardDeviceEngine.stage) against the padded
+    staging it replaced (job_arrays' padded centers, their int64 diff on
+    the host, the uploads): the inputs K5 reads equal; host ms of each to
+    its uploaded inputs (synchronised); the staging kernel alone on the
+    uploaded centers: card ms (CUDA events around one launch, and a
+    launch's share of 50 back to back), device ms a launch (torch.profiler
+    over 50 back to back, and over one launch; null where the profiler
+    sees no launch), its plain version's ms on the card, the bound, its
+    share of the bound (of the device ms, else of the back-to-back ms, as
+    ``share_of`` says) and the launches a call."""
+    import torch
+
+    from gaml_tpu_torch.ops import forward_cuda
+    from gaml_tpu_torch.scoring.pacbio import job_arrays, ragged_arrays
+
+    eng = rs._ensure_fwd_engine()
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    out = []
+    for k, (seq, jobs, extents) in enumerate(batches):
+        def ragged():
+            staged = eng.stage(seq, *ragged_arrays(seq, jobs, extents))
+            sync(device)
+            return staged
+
+        def padded():
+            (_rmax, _reads, rlens, centers, gstarts,
+             glens) = job_arrays(seq, jobs, extents)
+            steps = np.clip(np.diff(centers.astype(np.int64), axis=1), 0,
+                            2).astype(np.uint8)
+            row = np.array([j[2] + j[3] * eng.n_reads for j in jobs])
+            meta = up(np.stack([np.asarray(x, dtype=np.int32) for x in (
+                row, centers[:, 0], gstarts, glens, rlens)]))
+            staged = (eng.rows, meta[0], up(seq), up(steps), meta[1],
+                      meta[2], meta[3], meta[4])
+            sync(device)
+            return staged
+
+        got, want = ragged(), padded()
+        names = ("rows", "row", "seq", "steps", "c0", "gstart", "glen",
+                 "rlen")
+        for name, a, b in zip(names, got, want):
+            check(a.shape == b.shape and torch.equal(a, b),
+                  f"walk set {k}: the ragged staging's {name} differs from "
+                  f"the padded staging's")
+        rmax, centers, offsets, gstarts = ragged_arrays(seq, jobs,
+                                                        extents)[:4]
+        args = [up(a) for a in (centers, offsets, gstarts)]
+
+        def kernel():
+            return forward_cuda.forward_stage(*args, rmax)
+
+        def plain():
+            return forward_cuda.forward_stage_ref(*args, rmax)
+
+        def fifty():
+            return [kernel() for _ in range(50)]
+
+        (steps, c0), launched = launches_of(kernel)
+        p_steps, p_c0 = plain()
+        check(torch.equal(steps, p_steps) and torch.equal(c0, p_c0),
+              f"walk set {k}: the staging kernel differs from its plain "
+              f"version")
+        seen = {}
+        for name, fn, n in (("device_ms", fifty, 50),
+                            ("lone_device_ms", kernel, 1)):
+            _n, dev = device_profile(device, fn, reps,
+                                     kernels=STAGE_KERNEL)
+            seen[name] = (dev[STAGE_KERNEL] / n
+                          if STAGE_KERNEL in dev else None)
+        back_to_back = timer(device, fifty, reps) / 50
+        bound = stage_bound(len(centers), len(jobs), rmax)
+        share_of = "device_ms" if seen["device_ms"] else "back_to_back_ms"
+        res = {"case": f"walk set {k}", "jobs": len(jobs),
+               "centers": len(centers), "rmax": rmax,
+               "ranges": len({e[0] for e in extents}) if extents else 1,
+               "ragged_host_ms": timer(device, ragged, reps,
+                                       host_clock=True),
+               "padded_host_ms": timer(device, padded, 1, host_clock=True),
+               "card_ms": timer(device, kernel, reps),
+               "back_to_back_ms": back_to_back, **seen,
+               "plain_ms": timer(device, plain, reps),
+               "launches": launched["forward_stage"], **bound,
+               "share_of": share_of,
+               "share_of_bound_pct": 100 * bound["bound_ms"] / (
+                   seen["device_ms"] or back_to_back)}
+        print("  stage " + json.dumps(res), flush=True)
+        out.append(res)
+    return out
+
+
 def phase_seeds(device, seed=1181783497, reps=5):
     """The long-read seed lookup at the ``pacbio.rescore`` cell's shapes:
     each walk set's batch (every range of its precompute, every anchored
@@ -1824,23 +1950,37 @@ def phase_seeds(device, seed=1181783497, reps=5):
     lists equal; wall ms a batch (median of ``reps``, each ending in the
     read-back), the kernels' device ms (torch.profiler), the bound, the
     launches a batch.  The precomputes themselves (the read set's entry
-    point) must launch the kernels once a walk set (seed_launches).  Then
-    the smallest range of the start walks alone, the size an anneal move's
-    miss has, the same three ways."""
+    point) must launch the kernels once a walk set (seed_launches), and
+    stage each walk set's one forward batch raggedly.  Then the smallest
+    range of the start walks alone, the size an anneal move's miss has,
+    the same three ways.  Last, each forward batch's staging
+    (stage_cases)."""
     from gaml_tpu_torch.ops import seeds_device
 
     with tempfile.TemporaryDirectory(prefix="gaml_smoke_seeds_") as d:
         t0 = time.perf_counter()
         graph, rs, pool = ecoli_pacbio_world(d, device, seed)
         t_world = time.perf_counter() - t0
-        batches, ran = launches_of(lambda: seed_batches(rs, graph, pool))
+        (batches, fwd_batches, counters), ran_all = launches_of(
+            lambda: seed_batches(rs, graph, pool))
     want = seed_launches(batches)
-    ran = {k: ran[k] for k in want}
+    ran = {k: ran_all[k] for k in want}
     check(len(batches) == len(pool) and want["seeds_keys"] == len(pool),
           f"{len(batches)} seed batches of {want['seeds_keys']} with "
           f"queries from {len(pool)} walk sets")
     check(ran == want, f"the precomputes launched the seed kernels "
           f"{ran}, not {want}")
+    staging = {"forward_batches": len(fwd_batches),
+               "banded_forward": ran_all["banded_forward"],
+               "forward_stage": ran_all["forward_stage"],
+               "pacbio.device_batches": counters.get(
+                   "pacbio.device_batches", 0)}
+    check(len(fwd_batches) == len(pool) and
+          staging["banded_forward"] == staging["forward_stage"] ==
+          staging["pacbio.device_batches"] == len(pool),
+          f"the precomputes' forward batches were not each staged "
+          f"raggedly once: {staging}")
+    print("  staging " + json.dumps(staging), flush=True)
     eng = rs._seed_engine()
     check(eng is not None, "the read set on the card has no resident rows")
     ws = seeds_device.Workspace()
@@ -1901,7 +2041,9 @@ def phase_seeds(device, seed=1181783497, reps=5):
         print("  seeds " + json.dumps(res), flush=True)
         out.append(res)
     sync(device)
-    return {"world_s": t_world, "precompute_launches": ran, "cases": out}
+    stage = stage_cases(device, rs, fwd_batches, reps)
+    return {"world_s": t_world, "precompute_launches": ran, "cases": out,
+            "precompute_staging": staging, "stage": stage}
 
 
 def seeds_main():
@@ -1919,7 +2061,8 @@ def seeds_main():
                        genome)
     print(json.dumps({"seeds": res, "anneal_seed_launches":
                       pb["seed_launches"], "kernels": {
-                          k: usage[k] for k in SEEDS_KERNELS}}), flush=True)
+                          k: usage[k] for k in SEEDS_KERNELS + (
+                              STAGE_KERNEL,)}}), flush=True)
     return 0
 
 

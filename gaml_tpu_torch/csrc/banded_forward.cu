@@ -390,3 +390,88 @@ extern "C" int gaml_banded_forward(const void* reads, int n_rows,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+
+// The guide steps of K5's batch from its jobs' guide centers, staged
+// raggedly: kernel forward_stage.  Replaces no TPU kernel: the JAX package
+// staged a batch on the host (a padded [B, rmax + 1] centers matrix and
+// its diff), which on a long-read batch (thousands of jobs, 11 M centers,
+// rmax 15 k) costs seconds of host time for bytes the card moves in
+// microseconds.  Here the centers arrive as one flat int32 buffer, job j's
+// at centers[offsets[j] .. offsets[j + 1]), each in the frame of its own
+// target, and the kernel writes what K5 reads:
+//   steps[j, r] = clamp(c[r + 1] - c[r], 0, 2) for r < min(n_j - 1, rmax),
+//                 else 0 (n_j the job's centers)
+//   c0[j]       = c[0] + gstart[j] (the job's first column in the walk
+//                 buffer; gstart[j] alone for a job without centers)
+// which is what the padded matrix's int64 diff and first column give.
+// Bound by bytes: the centers read once, steps and c0 written once.  A
+// thread writes four steps as one 32-bit word (rmax a multiple of 4) from
+// five neighbouring centers, a block 1024 columns of one job; columns
+// past a job's centers are zeros and read nothing.
+
+namespace {
+
+constexpr int kStageThreads = 256;
+constexpr int kStageCols = 4 * kStageThreads;  // columns a block
+constexpr int kMaxGridY = 65535;
+
+__global__ void __launch_bounds__(kStageThreads)
+forward_stage_kernel(const int32_t* __restrict__ centers,
+                     const int64_t* __restrict__ offsets,
+                     const int32_t* __restrict__ gstart, int n_jobs,
+                     int rmax, uint8_t* __restrict__ steps,
+                     int32_t* __restrict__ c0) {
+  const int r0 = (blockIdx.x * kStageThreads + threadIdx.x) * 4;
+  for (int job = blockIdx.y; job < n_jobs; job += gridDim.y) {
+    const long long off = offsets[job];
+    const long long n = offsets[job + 1] - off;
+    if (blockIdx.x == 0 && threadIdx.x == 0)
+      c0[job] = (n > 0 ? centers[off] : 0) + gstart[job];
+    if (r0 >= rmax) continue;
+    // the steps that come from centers: r < last
+    const int last = static_cast<int>(
+        min(max(n - 1, 0LL), static_cast<long long>(rmax)));
+    uint32_t word = 0;
+    if (r0 < last) {
+      const int32_t* c = centers + off + r0;
+      int prev = c[0];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (r0 + k < last) {
+          const int next = c[k + 1];
+          const long long d = static_cast<long long>(next) - prev;
+          word |= static_cast<uint32_t>(min(max(d, 0LL), 2LL)) << (8 * k);
+          prev = next;
+        }
+      }
+    }
+    reinterpret_cast<uint32_t*>(steps + static_cast<size_t>(job) * rmax)
+        [r0 / 4] = word;
+  }
+}
+
+}  // namespace
+
+// forward_stage: centers [offsets[n_jobs]] int32, offsets [n_jobs + 1]
+// int64, gstart [n_jobs] int32; writes steps [n_jobs, rmax] uint8 and c0
+// [n_jobs] int32.  All pointers are device pointers; steps 4-byte
+// aligned.  The launch goes on ``stream`` and does not synchronise.
+// Returns cudaErrorInvalidValue unless rmax >= 0 is a multiple of 4 and
+// n_jobs > 0, else cudaGetLastError() after the launch.
+extern "C" int gaml_forward_stage(const void* centers, const void* offsets,
+                                  const void* gstart, int n_jobs, int rmax,
+                                  void* steps, void* c0, void* stream) {
+  if (n_jobs <= 0 || rmax < 0 || rmax % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int col_blocks = (rmax + kStageCols - 1) / kStageCols;
+  const dim3 grid(col_blocks > 0 ? col_blocks : 1,
+                  n_jobs < kMaxGridY ? n_jobs : kMaxGridY);
+  forward_stage_kernel<<<grid, kStageThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(centers),
+      static_cast<const int64_t*>(offsets),
+      static_cast<const int32_t*>(gstart), n_jobs, rmax,
+      static_cast<uint8_t*>(steps), static_cast<int32_t*>(c0));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -123,6 +123,8 @@ def load():
                                             p, i, i, ctypes.c_float,
                                             ctypes.c_float, p, p]
         lib.gaml_banded_forward.restype = i
+        lib.gaml_forward_stage.argtypes = [p, p, p, i, i, p, p, p]
+        lib.gaml_forward_stage.restype = i
         ll = ctypes.c_longlong
         lib.gaml_candgen_ws_words.argtypes = [i]
         lib.gaml_candgen_ws_words.restype = ll

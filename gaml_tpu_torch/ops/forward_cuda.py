@@ -1,5 +1,6 @@
-"""Kernel K5 (csrc/banded_forward.cu): wrapper, plain version, launch count
-(``banded_forward`` in utils.metrics.LAUNCHES).
+"""Kernel K5 (csrc/banded_forward.cu) and the staging kernel that feeds it:
+wrappers, plain versions, launch counts (``banded_forward`` and
+``forward_stage`` in utils.metrics.LAUNCHES).
 
 K5 ``banded_forward`` replaces gaml_tpu/ops/forward_pallas.py::
 banded_forward_pallas_call: the banded log-space forward DP of a batch of
@@ -19,6 +20,10 @@ A job's rows are 1 .. min(rlen, rmax, stride).  The band width is 64 or
 wrapper runs the plain version in the kernel's precision (float64, the
 result rounded to float32 as the kernel returns it); on a CUDA tensor it
 launches the kernel or raises.
+
+``forward_stage`` writes K5's steps and c0 from a batch's guide centers
+staged raggedly (one flat int32 buffer with per-job offsets, each job's
+centers in the frame of its target); on a CPU tensor its plain version.
 """
 from __future__ import annotations
 
@@ -104,3 +109,62 @@ def banded_forward(reads, row, seq, steps, c0, gstart, glen, rlen,
            gstart, glen, rlen, b, width, log_match, log_mismatch, out)
     LAUNCHES["banded_forward"] += 1
     return out
+
+
+def forward_stage_ref(centers, offsets, gstart, rmax: int):
+    """Plain torch version of the staging kernel: (steps [B, rmax] uint8,
+    c0 [B] int32) of job j's centers c = centers[offsets[j]:offsets[j +
+    1]]: steps[j, r] = clamp(c[r + 1] - c[r], 0, 2) for r < min(len(c) -
+    1, rmax), else 0; c0[j] = c[0] + gstart[j] (gstart[j] where c is
+    empty)."""
+    dev = centers.device
+    off = offsets.to(torch.int64)
+    b = off.shape[0] - 1
+    n = off[1:] - off[:-1]
+    c = centers.to(torch.int64)
+    steps = torch.zeros((b, rmax), dtype=torch.uint8, device=dev)
+    if c.numel() > 1:
+        job = torch.repeat_interleave(torch.arange(b, device=dev), n)[:-1]
+        r = torch.arange(c.numel() - 1, device=dev) - off[job]
+        keep = r < (n[job] - 1).clamp(max=rmax)
+        steps[job[keep], r[keep]] = (c[1:] - c[:-1]).clamp(0, 2)[keep].to(
+            torch.uint8)
+    first = torch.zeros(b, dtype=torch.int64, device=dev)
+    has = n > 0
+    first[has] = c[off[:-1][has]]
+    return steps, (first + gstart.to(torch.int64)).to(torch.int32)
+
+
+def forward_stage(centers, offsets, gstart, rmax: int):
+    """K5's (steps [B, rmax] uint8, c0 [B] int32) from the ragged centers
+    (int32 [N]), their offsets (int64 [B + 1], offsets[B] = N) and the
+    jobs' gstart (int32 [B]): one launch of the staging kernel on a CUDA
+    tensor (rmax a multiple of 4), the plain version on a CPU one."""
+    b = gstart.shape[0]
+    want = {"centers": (centers, torch.int32, (centers.shape[0],)),
+            "offsets": (offsets, torch.int64, (b + 1,)),
+            "gstart": (gstart, torch.int32, (b,))}
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != gstart.device:
+            raise ValueError(f"{name} is on {t.device}, gstart on "
+                             f"{gstart.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if gstart.device.type == "cpu":
+        return forward_stage_ref(centers, offsets, gstart, rmax)
+    if gstart.device.type != "cuda":
+        raise ValueError(f"unsupported device {gstart.device}")
+    if rmax < 0 or rmax % 4:
+        raise ValueError(f"the staging kernel takes rmax a multiple of 4, "
+                         f"got {rmax}")
+    steps = torch.empty((b, rmax), dtype=torch.uint8, device=gstart.device)
+    c0 = torch.empty(b, dtype=torch.int32, device=gstart.device)
+    if b == 0:
+        return steps, c0
+    launch("forward_stage", gstart.device, centers, offsets, gstart, b, rmax,
+           steps, c0)
+    LAUNCHES["forward_stage"] += 1
+    return steps, c0

@@ -6,9 +6,11 @@ set's forward and reverse-complement rows are uploaded once and stay on
 the device as one uint8 [2 * n_reads, rmax_cls] matrix (forward rows,
 then reverse-complement rows, padded with code 6); a job names its read
 as row = rid + strand * n_reads.  At 10 k reads of 8 kb that is 160 MB,
-so the rows are not packed.  A batch ships the walk buffer (uint8), the
-guide steps (uint8 [B, rmax]) and five int32 per job (row, c0, gstart,
-glen, rlen), and runs in one launch.
+so the rows are not packed.  A batch ships the walk buffer (uint8), its
+jobs' guide centers as one flat int32 buffer with int64 offsets, and four
+int32 per job (row, gstart, glen, rlen); the staging kernel
+(ops/forward_cuda.py::forward_stage) writes the guide steps (uint8 [B,
+rmax]) and c0 on the device, and K5 runs in one launch.
 
 Jobs without a read id, and read sets whose rows would exceed
 GAML_PB_RESIDENT_MAX bytes, stage their rows densely into the same
@@ -27,16 +29,9 @@ import torch
 from ..core import dna
 from ..utils.metrics import span
 
-from .forward_cuda import banded_forward
+from .forward_cuda import banded_forward, forward_stage
 
 PAD_CODE = 6  # read-row padding, as in the dense staging
-
-
-def guide_steps(centers: np.ndarray) -> np.ndarray:
-    """[B, rmax] uint8 guide steps of [B, rmax + 1] centers, clipped to
-    0..2 (the band catches up at most two columns a row)."""
-    return np.clip(np.diff(centers.astype(np.int64), axis=1), 0,
-                   2).astype(np.uint8)
 
 
 class ForwardDeviceEngine:
@@ -66,25 +61,37 @@ class ForwardDeviceEngine:
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def stage(self, seq, steps, c0, gstarts, glens, rlens, rid=None,
-              strand=None, reads=None):
-        """The kernel's inputs of one batch on the device: rows come from
-        the resident matrix by (rid, strand), or densely from ``reads``
-        [B, rmax] uint8 when ``rid`` is None."""
-        b = len(c0)
-        if rid is None:
-            rows_t = self._upload(reads)
-            row = np.arange(b, dtype=np.int32)
-        else:
+    def stage(self, seq, rmax, centers, offsets, gstarts, glens, rlens,
+              rid, strand, reads):
+        """The kernel's inputs of one batch on the device (scoring/pacbio.py
+        ::ragged_arrays' layout).  Job j's guide centers are
+        centers[offsets[j]:offsets[j + 1]] (int32 [N], int64 [B + 1]), in
+        the frame of its target, which starts at gstarts[j] in ``seq``; they
+        go up once and the staging kernel writes the guide steps ([B,
+        rmax], rmax a multiple of 4) and c0.  Rows come from the resident
+        matrix by (rid, strand) when there is one and every job has a read
+        id (rid >= 0), else densely from ``reads``, the jobs' read codes."""
+        b = len(rlens)
+        if self.rows is not None and bool((np.asarray(rid) >= 0).all()):
             rows_t = self.rows
             row = (np.asarray(rid, np.int64)
                    + np.asarray(strand, np.int64) * self.n_reads)
+        else:
+            dense = np.full((b, rmax), PAD_CODE, dtype=np.uint8)
+            for i, r in enumerate(reads):
+                dense[i, :len(r)] = r
+            rows_t = self._upload(dense)
+            row = np.arange(b, dtype=np.int32)
         meta = self._upload(np.stack([
             np.asarray(x, dtype=np.int32).reshape(b)
-            for x in (row, c0, gstarts, glens, rlens)]))
+            for x in (row, gstarts, glens, rlens)]))
+        steps, c0 = forward_stage(
+            self._upload(np.asarray(centers, dtype=np.int32)),
+            self._upload(np.asarray(offsets, dtype=np.int64)), meta[1],
+            int(rmax))
         return (rows_t, meta[0], self._upload(np.asarray(seq,
                                                          dtype=np.uint8)),
-                self._upload(steps), meta[1], meta[2], meta[3], meta[4])
+                steps, c0, meta[1], meta[2], meta[3])
 
     def run(self, staged, log_match, log_mismatch, width):
         """Log-probabilities (float64 numpy [B]) of a staged batch: one
@@ -93,30 +100,3 @@ class ForwardDeviceEngine:
                              int(width))
         with span("sync"):
             return out.cpu().numpy().astype(np.float64)
-
-    def forward(self, seq, steps, c0, gstarts, glens, rlens, log_match,
-                log_mismatch, width, rid=None, strand=None, reads=None):
-        """Log-probabilities (float64 numpy [B]) of one batch (``stage``,
-        then ``run``)."""
-        return self.run(self.stage(seq, steps, c0, gstarts, glens, rlens,
-                                   rid, strand, reads),
-                        log_match, log_mismatch, width)
-
-    def stage_jobs(self, seq, reads, rlens, centers, gstarts, glens, rid,
-                   strand):
-        """stage() of one batch in scoring/pacbio.py::job_arrays' layout:
-        from the resident rows when there are any and every job has a read
-        id (``rid`` >= 0), else densely from ``reads``."""
-        resident = self.rows is not None and bool((rid >= 0).all())
-        return self.stage(seq, guide_steps(centers), centers[:, 0], gstarts,
-                          glens, rlens, rid=rid if resident else None,
-                          strand=strand if resident else None,
-                          reads=None if resident else reads)
-
-    def forward_jobs(self, seq, reads, rlens, centers, gstarts, glens,
-                     log_match, log_mismatch, width, rid, strand):
-        """forward() of one batch in job_arrays' layout (``stage_jobs``,
-        then ``run``)."""
-        return self.run(self.stage_jobs(seq, reads, rlens, centers, gstarts,
-                                        glens, rid, strand),
-                        log_match, log_mismatch, width)

@@ -69,35 +69,63 @@ DEVICE_MIN_CELLS = 16384
 RESIDENT_MAX = 4_000_000_000  # GAML_PB_RESIDENT_MAX default, bytes
 
 
+def job_extents(seq, n_jobs: int, extents):
+    """The targets' gstarts and glens (int32 [n_jobs]) of a batch:
+    ``extents``' (gstart, glen) pairs, default the whole buffer."""
+    if extents is None:
+        return (np.zeros(n_jobs, dtype=np.int32),
+                np.full(n_jobs, len(seq), dtype=np.int32))
+    ext = np.asarray(extents, dtype=np.int32).reshape(n_jobs, 2)
+    return np.ascontiguousarray(ext[:, 0]), np.ascontiguousarray(ext[:, 1])
+
+
+def job_rmax(rlens) -> int:
+    """A batch's row count: its longest job rounded up to 128."""
+    return ((int(max(rlens)) + 127) // 128) * 128
+
+
 def job_arrays(seq, jobs, extents):
-    """The arrays of one forward-DP batch: rmax
-    (the longest job rounded up to 128), reads [b, rmax] uint8 padded with
-    6, rlens, centers [b, rmax + 1] (the last center repeated), the
-    targets' gstarts/glens (default: the whole buffer) and each job's
-    (rid, strand), rid -1 where the job has none."""
-    rmax = max(len(j[0]) for j in jobs)
-    rmax = ((rmax + 127) // 128) * 128
+    """The padded arrays of one forward-DP batch for the native host
+    kernel: rmax (the longest job rounded up to 128), reads [b, rmax] uint8
+    padded with 6, rlens, centers [b, rmax + 1] in ``seq`` (each job's
+    centers, which are in the frame of its target, plus its gstart; the
+    last center repeated) and the targets' gstarts/glens (default: the
+    whole buffer)."""
     b = len(jobs)
+    gstarts, glens = job_extents(seq, b, extents)
+    rmax = job_rmax([len(j[0]) for j in jobs])
     reads = np.full((b, rmax), 6, dtype=np.uint8)
     rlens = np.zeros(b, dtype=np.int32)
     centers = np.zeros((b, rmax + 1), dtype=np.int32)
-    job_rid = np.full(b, -1, dtype=np.int32)
-    job_strand = np.zeros(b, dtype=np.uint8)
-    for i, (r, c, *extra) in enumerate(jobs):
+    for i, (r, c, *_id) in enumerate(jobs):
         reads[i, :len(r)] = r
         rlens[i] = len(r)
-        centers[i, :len(c)] = c
-        centers[i, len(c):] = c[-1]
-        if extra:
-            job_rid[i] = extra[0]
-            job_strand[i] = extra[1]
-    if extents is None:
-        gstarts = np.zeros(b, dtype=np.int32)
-        glens = np.full(b, len(seq), dtype=np.int32)
-    else:
-        gstarts = np.array([e[0] for e in extents], dtype=np.int32)
-        glens = np.array([e[1] for e in extents], dtype=np.int32)
-    return rmax, reads, rlens, centers, gstarts, glens, job_rid, job_strand
+        centers[i, :len(c)] = np.asarray(c) + gstarts[i]
+        centers[i, len(c):] = centers[i, len(c) - 1]
+    return rmax, reads, rlens, centers, gstarts, glens
+
+
+def ragged_arrays(seq, jobs, extents):
+    """The arrays of one forward-DP batch for the engine
+    (ForwardDeviceEngine.stage): rmax as job_arrays, every job's centers in
+    one flat int32 array (in the frame of its target), their offsets
+    (int64 [b + 1]), the targets' gstarts/glens, rlens, each job's (rid,
+    strand), rid -1 where the job has none, and the jobs' read codes.  No
+    padded matrix and no per-center Python object."""
+    b = len(jobs)
+    gstarts, glens = job_extents(seq, b, extents)
+    rlens = np.fromiter((len(j[0]) for j in jobs), dtype=np.int32, count=b)
+    offsets = np.zeros(b + 1, dtype=np.int64)
+    np.cumsum(np.fromiter((len(j[1]) for j in jobs), dtype=np.int64,
+                          count=b), out=offsets[1:])
+    centers = np.concatenate([np.asarray(j[1]) for j in jobs]).astype(
+        np.int32, copy=False)
+    rid = np.fromiter((j[2] if len(j) > 2 else -1 for j in jobs),
+                      dtype=np.int32, count=b)
+    strand = np.fromiter((j[3] if len(j) > 2 else 0 for j in jobs),
+                         dtype=np.uint8, count=b)
+    return (job_rmax(rlens), centers, offsets, gstarts, glens, rlens, rid,
+            strand, [j[0] for j in jobs])
 
 
 def walk_bounds(graph, path) -> Tuple[List[int], List[int]]:
@@ -366,19 +394,20 @@ class PacbioReadSet:
     def _forward_batch(self, seq: np.ndarray, jobs, extents=None):
         """jobs: list of (read codes, centers[, rid, strand]); returns the
         logprobs list.  ``extents`` gives each job's (gstart, glen) in
-        ``seq``; default the whole buffer.  Traced as the spans
-        ``pacbio.stage`` (the job arrays, and on the engine the guide
-        steps and uploads) and ``pacbio.forward`` (the native kernel, or
-        the engine's launch and its ``sync`` read-back), and the counters
-        ``pacbio.jobs``, ``pacbio.cells`` and ``pacbio.native_batches`` or
-        ``pacbio.device_batches``."""
+        ``seq``, default the whole buffer; a job's centers are in the frame
+        of its target (column 0 at its gstart).  A batch for the engine is
+        staged raggedly (``ragged_arrays``, then the staging kernel); a
+        batch for the native kernel through ``job_arrays``.  Traced as the
+        spans ``pacbio.stage`` (the job arrays, and on the engine the
+        uploads and the guide steps) and ``pacbio.forward`` (the native
+        kernel, or the engine's launch and its ``sync`` read-back), and the
+        counters ``pacbio.jobs``, ``pacbio.cells`` and
+        ``pacbio.native_batches`` or ``pacbio.device_batches``."""
         if not jobs:
             return []
         with span("pacbio.stage"):
-            (rmax, reads, rlens, centers, gstarts, glens, job_rid,
-             job_strand) = job_arrays(seq, jobs, extents)
             width = self.forward_width or 64
-            cells = int(rlens.sum()) * width
+            cells = sum(len(j[0]) for j in jobs) * width
             prof = getattr(self, "dp_cells", None)
             if prof is None:
                 prof = self.dp_cells = {}
@@ -396,8 +425,10 @@ class PacbioReadSet:
                     native = banded_forward_host
             if native is None:
                 eng = self._ensure_fwd_engine()
-                staged = eng.stage_jobs(seq, reads, rlens, centers, gstarts,
-                                        glens, job_rid, job_strand)
+                staged = eng.stage(seq, *ragged_arrays(seq, jobs, extents))
+            else:
+                (_rmax, reads, rlens, centers, gstarts,
+                 glens) = job_arrays(seq, jobs, extents)
         count("pacbio.jobs", len(jobs))
         count("pacbio.cells", cells)
         if native is not None:
@@ -653,8 +684,8 @@ class PacbioReadSet:
     def _run_preps(self, preps) -> None:
         """Run every prep's forward-DP jobs in ONE device batch (the kernel
         takes concatenated targets with per-job extents, so a call's
-        launch and read-back are paid once), then apply (span
-        ``pacbio.apply``)."""
+        launch and read-back are paid once; each job keeps its centers in
+        its own range's frame), then apply (span ``pacbio.apply``)."""
         if not preps:
             return
         if len(preps) == 1:
@@ -668,9 +699,8 @@ class PacbioReadSet:
             off = 0
             for prep in preps:
                 seq = prep["seq"]
-                for q, centers, *extra in prep["jobs"]:
-                    all_jobs.append((q, [c + off for c in centers], *extra))
-                    extents.append((off, len(seq)))
+                all_jobs.extend(prep["jobs"])
+                extents.extend([(off, len(seq))] * len(prep["jobs"]))
                 counts.append(len(prep["jobs"]))
                 bufs.append(seq)
                 off += len(seq)

@@ -253,11 +253,12 @@ def score_world(device) -> Dict:
     res["fwd_jobs"] = [lo, hi]
     sl = slice(lo, hi)
     engine = ForwardDeviceEngine(None, device)
-    mine = engine.forward_jobs(
-        genome, f_reads[sl], rlens[sl], centers[sl], gstarts[sl],
-        glens[sl], PB_FWD_LM, PB_FWD_LMM, PB_FWD_WIDTH,
-        np.full(hi - lo, -1), np.zeros(hi - lo, np.int64)) \
-        if hi > lo else np.zeros(0)
+    n = hi - lo
+    mine = engine.run(engine.stage(
+        genome, PB_FWD_RMAX, (centers[sl] - gstarts[sl, None]).reshape(-1),
+        np.arange(n + 1) * (PB_FWD_RMAX + 1), gstarts[sl], glens[sl],
+        rlens[sl], np.full(n, -1), np.zeros(n, np.uint8), f_reads[sl]),
+        PB_FWD_LM, PB_FWD_LMM, PB_FWD_WIDTH) if n else np.zeros(0)
     plain = banded_forward(*(torch.from_numpy(a) for a in (
         genome, f_reads, rlens, centers, gstarts, glens)), PB_FWD_LM,
         PB_FWD_LMM, PB_FWD_RMAX, PB_FWD_WIDTH).numpy().astype(np.float64)

@@ -19,7 +19,7 @@ from gaml_tpu.ops.forward_pallas import banded_forward_pallas
 from gaml_tpu_torch.ops import forward_cuda
 from gaml_tpu_torch.ops.forward import banded_forward, banded_forward_scaled
 from gaml_tpu_torch.ops.forward_cuda import banded_forward_ref
-from gaml_tpu_torch.ops.forward_device import ForwardDeviceEngine, guide_steps
+from gaml_tpu_torch.ops.forward_device import ForwardDeviceEngine
 from gaml_tpu_torch.tools.forward_bench import (ADVERSARIAL_KINDS,
                                                 adversarial_batch,
                                                 dense_layout)
@@ -28,7 +28,7 @@ from gaml_tpu_torch.utils.metrics import LAUNCHES
 from fixtures import random_seq
 from test_forward_kernel import MATCH, MISMATCH, noisy_copy
 from test_forward_pallas import make_batch
-from test_torch_kernels import resident_jobs
+from test_torch_kernels import guide_steps, resident_jobs
 
 LM, LMM = float(np.log(MATCH)), float(np.log(MISMATCH))
 
@@ -272,10 +272,15 @@ def test_resident_staging_bit_equal_dense(width):
         q = read_seqs[rid[i]] if strand[i] == 0 else \
             dna.revcomp(read_seqs[rid[i]])
         dense[i, :len(q)] = q
-    args = (seq, guide_steps(centers), centers[:, 0], gstarts, glens, rlens,
-            LM, LMM, width)
-    got = eng.forward(*args, rid=rid, strand=strand)
-    want = ForwardDeviceEngine(None, "cpu").forward(*args, reads=dense)
+    # each job's padded centers, in its target's frame, as one flat buffer
+    args = (seq, dense.shape[1], (centers - gstarts[:, None]).reshape(-1),
+            np.arange(len(rid) + 1) * centers.shape[1], gstarts, glens,
+            rlens)
+    got = eng.run(eng.stage(*args, rid, strand, list(dense)), LM, LMM,
+                  width)
+    dense_eng = ForwardDeviceEngine(None, "cpu")
+    want = dense_eng.run(dense_eng.stage(*args, rid, strand, list(dense)),
+                         LM, LMM, width)
     assert np.array_equal(got, want)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(

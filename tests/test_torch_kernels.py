@@ -25,16 +25,45 @@ from gaml_tpu_torch.ops.extend_cuda import (dp_rows_exact,
                                             swar_cost_accept,
                                             swar_cost_accept_ref,
                                             swar_cost_ref)
-from gaml_tpu_torch.ops.forward_device import ForwardDeviceEngine, guide_steps
+from gaml_tpu_torch.ops.forward_device import ForwardDeviceEngine
 from gaml_tpu_torch.tools import swar_kernel_proto
 from gaml_tpu_torch.utils.metrics import LAUNCHES
 
 
+def guide_steps(centers):
+    """K5's guide steps of padded [B, rmax + 1] centers: their diff,
+    clipped to 0..2 (the band catches up at most two columns a row)."""
+    return np.clip(np.diff(centers.astype(np.int64), axis=1), 0,
+                   2).astype(np.uint8)
+
+
+def jax_native_build(build_dir):
+    """The path of the JAX package's native library built by its own
+    build() into ``build_dir`` under the port's build lock, named by its
+    source's hash."""
+    import fcntl
+    import hashlib
+
+    import gaml_tpu.native as jax_native
+
+    with open(jax_native._SRC, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:16]
+    jax_native._SO = os.path.join(build_dir,
+                                  f"libgaml_tpu_native_{digest}.so")
+    with open(os.path.join(build_dir, "native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        jax_native.build()
+    return jax_native._SO
+
+
 def port_native_lib():
     """The port's native library (built once, under its lock).  The JAX
-    package's bindings, where a test loads them, are pointed at the same
-    file (the same source), so tests that hold one against the other
-    never race on the JAX package's in-place build."""
+    package's bindings, where a test loads them, are pointed at the JAX
+    package's own library built beside it under the same lock
+    (jax_native_build), so tests that hold one against the other never
+    race on the JAX package's in-place build (ROADMAP C9); each package
+    loads its own source's build, and where that does not build the JAX
+    package's bindings are missing."""
     from gaml_tpu_torch import native
 
     lib = native.get_lib()
@@ -44,9 +73,7 @@ def port_native_lib():
 
     with jax_native._lock:
         if jax_native._lib is None:
-            so = native.library_path()
-            os.utime(so)  # newer than the JAX package's copy of the source
-            jax_native._SO = so
+            jax_native_build(os.path.dirname(native.library_path()))
             jax_native._tried = False
     return lib
 
@@ -481,8 +508,9 @@ def test_pacbio_dispatch_on_card():
 
     (read_seqs, seq, rid, strand, rlens, centers, gstarts,
      glens) = resident_jobs(7, n_reads=40, c=300, seq_len=2000)
-    jobs = [(np.full(n, 6, np.uint8), c, r, st)
-            for n, c, r, st in zip(rlens, centers, rid, strand)]
+    # a job's centers are in its target's frame
+    jobs = [(np.full(n, 6, np.uint8), c - gs, r, st)
+            for n, c, r, st, gs in zip(rlens, centers, rid, strand, gstarts)]
     extents = list(zip(gstarts, glens))
     out = {}
     for dev in ("cpu", "cuda"):

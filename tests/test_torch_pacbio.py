@@ -75,7 +75,7 @@ def test_forward_batches_match_jax_at_forward_width(tmp_path, monkeypatch,
     rs.precompute_ranges_for_paths(gr, WALKS)
     assert calls and any(ext is not None for _s, _j, ext, _o in calls)
     for seq, jobs, extents, out in calls:
-        rmax, reads, rlens, centers, gst, gl, _r, _s = job_arrays(
+        rmax, reads, rlens, centers, gst, gl = job_arrays(
             seq, jobs, extents)
         want = np.asarray(jax_banded_forward(
             *(jnp.asarray(x) for x in (seq, reads, rlens, centers, gst, gl)),

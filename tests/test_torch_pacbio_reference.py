@@ -177,7 +177,10 @@ def test_rescore_equals_the_reference(small, monkeypatch, route, min_cells,
             read = small.world.reads[rid]
             assert np.array_equal(q, read if strand == 0 else
                                   R.revcomp(read))
-            assert np.array_equal(np.asarray(centers, np.int64),
+            # a job's centers are in its target's frame: its extent's
+            # start places them in the batch's buffer
+            start = 0 if extents is None else extents[i][0]
+            assert np.array_equal(np.asarray(centers, np.int64) + start,
                                   job.guide + offs[job.fill])
             if extents is not None:
                 assert extents[i] == (offs[job.fill],
