@@ -7,8 +7,10 @@ lone walks duplicating nodes used elsewhere), best-tracking, periodic
 output, and reach-cache write-back of accepted local reroutes.
 
 Beyond the reference: structured per-phase metrics (utils.metrics: the
-timers ``propose`` and ``rescore``, the counters ``moves.*``, and the spans
-``move`` and ``propose`` while tracing is on) and real checkpoint/resume
+timers ``propose`` and ``rescore``, the counters ``moves.*``; while tracing
+is on the spans ``move`` and ``propose`` and the counter
+``moves.advice_pacbio``, one a long-read advice move proposed) and real
+checkpoint/resume
 of (walks, best, RNG state, iteration, scoring states).
 """
 from __future__ import annotations
@@ -26,7 +28,7 @@ from ..moves.extend import extend_paths
 from ..moves.gaps import fix_random_gap_length
 from ..moves.repeats import fix_big_reps, fix_some_big_reps
 from ..moves.structural import break_path, local_change
-from ..utils.metrics import Metrics, span
+from ..utils.metrics import Metrics, count, span
 from ..utils.rng import GamlRng
 from .settings import AssemblySettings
 
@@ -201,6 +203,7 @@ class Optimizer:
                                 new_paths, gr, s.threshold, advice_set, KMER,
                                 self.prob_calc, rng):
                             continue
+                        count("moves.advice_pacbio")
                     else:
                         rs1, rs2 = self.advice_paired[
                             rng.randint(len(self.advice_paired))]

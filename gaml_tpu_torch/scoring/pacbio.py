@@ -289,7 +289,12 @@ class PacbioReadSet:
     def compute_anchors(self, graph, persist: bool = True) -> None:
         """Reference ComputeAnchors (graph.cc:2505-2576): node -> reads
         aligning to it, plus begin/end-touching subsets and the read ->
-        begin-anchored-nodes reverse index."""
+        begin-anchored-nodes reverse index.  Traced as the span
+        ``pacbio.anchors``."""
+        with span("pacbio.anchors"):
+            self._compute_anchors(graph, persist)
+
+    def _compute_anchors(self, graph, persist: bool) -> None:
         anchors_path = self.name + ".anchors"
         loaded = False
         if persist:
@@ -743,10 +748,13 @@ class PacbioReadSet:
         by walk, before the next walk's missing windows are found, as
         interleaved prep/apply would (the chaining touches no window).
         Traced as the spans ``pacbio.windows`` (the missing windows, their
-        ranges and reservations) and ``pacbio.chain``."""
+        ranges and reservations) and ``pacbio.chain``, and the counter
+        ``pacbio.windows_missing`` (the missing (i, j) windows of every
+        walk, as each walk found them)."""
         with span("pacbio.windows"):
             reserved = []
             seen = set()
+            n_missing = 0
             for path in paths:
                 path = graph.normalize_path(list(path))
                 key = tuple(path)
@@ -754,8 +762,10 @@ class PacbioReadSet:
                     continue
                 seen.add(key)
                 missing = self._missing_windows(graph, path)
+                n_missing += len(missing)
                 reserved.extend(self._reserve_windows(graph, path[a:b + 1])
                                 for a, b in merge_ranges(missing))
+        count("pacbio.windows_missing", n_missing)
         with span("pacbio.chain"):
             preps = self._chain_preps(graph, reserved)
         self._run_preps(preps)
