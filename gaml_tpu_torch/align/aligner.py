@@ -40,7 +40,7 @@ import numpy as np
 
 from ..core import dna
 from ..index.maxhash import K_INDEX_KMER, ReadIndexMaxHash
-from ..utils.metrics import LAUNCHES
+from ..utils.metrics import LAUNCHES, count
 from . import bfs
 
 K_MIN_SUBPATH_LENGTH = 300  # reference kMinSubpathLength (graph.cc:27)
@@ -326,7 +326,12 @@ class SubpathAligner:
         ``self.device``.  Returns a list of AlignmentColumns parallel to
         ``paths`` — or, with ``defer``, a zero-arg closure producing it
         after the (already queued) device work completes, so callers can
-        queue several read sets' batches before blocking on any result."""
+        queue several read sets' batches before blocking on any result.
+
+        Traced: the counters ``align.short_windows`` (windows skipped as
+        shorter than the index's query length, ``index.read_len``),
+        ``align.device_batches`` (one a batch that reaches the device) and
+        ``align.device_windows`` (the windows that batch sends)."""
         resc = self.ensure_device_rescorer()
         if resc is not None:
             return self._align_subpaths_batch_device(graph, paths, resc,
@@ -337,9 +342,11 @@ class SubpathAligner:
         out: List[AlignmentColumns] = [_EMPTY_COLUMNS_ALIGNER] * len(paths)
         seqs, offsets, keep = [], [], []
         seq_idx, g0s, r0s, rid, orient = [], [], [], [], []
+        short = 0
         for si, path in enumerate(paths):
             seq, offset = spell_subpath(graph, path)
             if len(seq) < rl or rl == 0:
+                short += len(seq) < rl
                 continue
             cands = gen_candidates(self.index, self.read_seqs, seq,
                                    self._read_cache)
@@ -352,8 +359,11 @@ class SubpathAligner:
             keep.append(si)
             seqs.append(seq)
             offsets.append(offset)
+        count("align.short_windows", short)
         if not rid:
             return (lambda: out) if defer else out
+        count("align.device_batches")
+        count("align.device_windows", len(keep))
         from ..ops.extend import window_buffer
 
         ext, row_of = self.ensure_ragged_extender()
@@ -394,16 +404,21 @@ class SubpathAligner:
         seqs: List[np.ndarray] = []
         offsets: List[int] = []
         keep: List[int] = []
+        short = 0
         for si, path in enumerate(paths):
             seq, offset = spell_subpath(graph, path)
             if len(seq) < rl or rl == 0:
                 out[si] = _EMPTY_COLUMNS_ALIGNER
+                short += len(seq) < rl
                 continue
             keep.append(si)
             seqs.append(np.ascontiguousarray(seq, dtype=np.uint8))
             offsets.append(offset)
+        count("align.short_windows", short)
         if not keep:
             return (lambda: out) if defer else out
+        count("align.device_batches")
+        count("align.device_windows", len(keep))
         # the cap bounds one batch's candidate arrays on the device
         cap = max(4096, sum(len(s) for s in seqs) // 2)
         fetch = resc.extend(seqs, cap)
